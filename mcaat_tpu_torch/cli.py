@@ -8,8 +8,10 @@ of system RAM.
 
 Run as ``python -m mcaat_tpu_torch --input-files reads.fq [mate2.fq]
 [options]``. The run uses ``MCAAT_TORCH_DEVICE`` (default ``cuda``;
-without a card it stops with an error). ``--resume`` and
-``--debug-pipeline`` are refused: they are not ported yet.
+without a card it stops with an error). ``--resume`` (or ``resume=true``
+in the settings file) checkpoints every stage into the graph folder and
+keeps it; ``--debug-pipeline`` (or ``debug_pipeline=true``) runs the
+reference's DEBUG-main extension instead of the release pipeline.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ Optional:
   --threshold-multiplicity <int>  Minimum multiplicity threshold for start nodes (default in settings)
   --low-abundance <true|false>    Enable low abundance mode for cycle filtering
   --settings <path>               Path to a key=value settings file (overridden by CLI args)
+  --resume                        Checkpoint each stage into the graph folder, keep it, and skip finished stages on rerun
+  --debug-pipeline                Run the debug pipeline (filters, protospacer paths, phage curation, multiplicity histogram)
   --mesh <auto|off>               auto refuses more than one visible CUDA device (not ported yet); off runs on one
   --help, -h                      Show this help message
 """
@@ -122,15 +126,9 @@ def parse_arguments(argv: list[str]) -> Settings:
         elif arg == "--settings":
             i += 1  # handled in the pre-scan
         elif arg == "--debug-pipeline":
-            raise NotImplementedError(
-                "--debug-pipeline is not ported to mcaat_tpu_torch yet "
-                "(ROADMAP.md queue 1: the debug pipeline)"
-            )
+            settings.debug_pipeline = True
         elif arg == "--resume":
-            raise NotImplementedError(
-                "--resume is not ported to mcaat_tpu_torch yet "
-                "(ROADMAP.md queue 1: checkpoint/--resume)"
-            )
+            settings.resume = True
         elif arg == "--mesh":
             i += 1
             if i >= len(argv):
@@ -181,19 +179,13 @@ def run_cli(argv: list[str] | None = None):
     """Everything ``main`` does; returns the PipelineResult, or None when
     the settings check fails."""
     from mcaat_tpu_torch import resolve_device
-    from mcaat_tpu_torch.pipeline import run_pipeline
+    from mcaat_tpu_torch.pipeline import run_debug_pipeline, run_pipeline
 
     device = resolve_device()
     print("-------------------------------------------------------")
     print("mcaat_tpu_torch - Metagenomic CRISPR Array Analysis (PyTorch)")
     print("-------------------------------------------------------")
     settings = parse_arguments(argv if argv is not None else sys.argv[1:])
-    if settings.debug_pipeline or settings.resume:
-        raise NotImplementedError(
-            "debug_pipeline/resume from the settings file are not ported to "
-            "mcaat_tpu_torch yet (ROADMAP.md queue 1: checkpoint/--resume, "
-            "the debug pipeline)"
-        )
     print("Step 1. Checking the inputs: ")
     err = settings.print_settings()
     if err:
@@ -213,9 +205,16 @@ def run_cli(argv: list[str] | None = None):
         return None
     print("All inputs are correct. [✔]")
     print(f"Device: {device}")
-    result = run_pipeline(settings, device=device)
-    # ≙ end-of-run graph-folder cleanup (src/main.cpp:584-590)
-    if settings.graph_folder:
+    if settings.debug_pipeline:
+        return run_debug_pipeline(settings, device=device)
+    result = run_pipeline(
+        settings,
+        checkpoint_dir=settings.graph_folder if settings.resume else None,
+        device=device,
+    )
+    # ≙ end-of-run graph-folder cleanup (src/main.cpp:584-590); kept when
+    # it holds the checkpoints --resume asked for
+    if settings.graph_folder and not settings.resume:
         try:
             shutil.rmtree(settings.graph_folder)
         except OSError as e:

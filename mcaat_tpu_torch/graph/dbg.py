@@ -1,7 +1,8 @@
 """De Bruijn graph as a structure of tensors over a sorted k-mer table.
 
-Port of ``mcaat_tpu/graph/dbg.py`` (the single-pass build). The layout is
-the same:
+Port of ``mcaat_tpu/graph/dbg.py`` (the single-pass and the parted
+build, the single-shot and the chunked adjacency). The layout is the
+same:
 
 * ``kmers``  int64 ``[N]``  — sorted packed 23-mers; node id == rank.
 * ``mult``   int32 ``[N]``  — occurrence count (both strands with RC).
@@ -28,10 +29,10 @@ import torch
 from mcaat_tpu_torch import SENTINEL
 from mcaat_tpu_torch.io.fastq import decode_kmer
 from mcaat_tpu_torch.kmer.count import (
+    count_edges_parts,
     count_unique,
     derive_nodes_from_edges,
     extract_first_kmer,
-    extract_kmers,
     extract_last_kmer,
     revcomp_kmers,
 )
@@ -130,6 +131,31 @@ class HostDBG:
     def label(self, node_id: int) -> str:
         return decode_kmer(int(self.kmers[node_id]), self.k)
 
+    def outgoing_list(self, node: int) -> list[int]:
+        """Valid out-neighbours of one node, ascending."""
+        return sorted(int(v) for v in self.out[node] if v >= 0 and self.valid[v])
+
+    def incoming_list(self, node: int) -> list[int]:
+        return sorted(int(v) for v in self.in_[node] if v >= 0 and self.valid[v])
+
+    def _band_filtered(self, node: int, nbrs: list[int]) -> list[int]:
+        m = float(self.mult[node])
+        return [v for v in nbrs if m / 2 <= float(self.mult[v]) <= m * 1.2]
+
+    def band_outgoing_list(self, node: int) -> list[int]:
+        """Valid out-neighbours within the multiplicity band [m/2, 1.2m]
+        (≙ graph_generic_func::_GetOutgoings, reference
+        src/graph_generic_func.cpp:7-19); empty for an invalid node."""
+        if not self.valid[node]:
+            return []
+        return self._band_filtered(node, self.outgoing_list(node))
+
+    def band_incoming_list(self, node: int) -> list[int]:
+        """≙ graph_generic_func::_GetIncomings (src/graph_generic_func.cpp:21-34)."""
+        if not self.valid[node]:
+            return []
+        return self._band_filtered(node, self.incoming_list(node))
+
 
 def _lookup(table: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     """Rank of each query in the sorted ``table``, -1 where absent.
@@ -184,15 +210,18 @@ def _degree(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return ok.view(-1, 4).sum(dim=1, dtype=torch.int32)
 
 
-def _build_adjacency(
-    kmers23: torch.Tensor, edges24: torch.Tensor, u_id: torch.Tensor, k: int = 23
-):
-    """Scatter the unique (k+1)-mers into flat out/in adjacency over the
-    k-mer table. ``u_id`` is each edge's source node id (from
-    ``derive_nodes_from_edges``); only the destination joins.
+def _adjacency_scatter_chunk(
+    kmers23: torch.Tensor, edges24: torch.Tensor, u_id: torch.Tensor,
+    out: torch.Tensor, in_: torch.Tensor, k: int = 23,
+) -> None:
+    """Join one chunk of the sorted unique (k+1)-mer table against the
+    k-mer table and scatter it, in place, into the flat ``[4N+1]``
+    accumulators ``out``/``in_``. ``u_id`` is each edge's source node id
+    (from ``derive_nodes_from_edges``); only the destination joins.
 
-    Rows that are not live go to a dump slot ``4N`` of a ``4N+1`` buffer,
-    which is sliced off; each live (k+1)-mer maps to its own slot."""
+    Rows that are not live go to the dump slot ``4N``; each live
+    (k+1)-mer maps to its own slot. Slots are int64 (``4N`` passes 2^31
+    above about 536M nodes); node ids stay int32."""
     N = kmers23.shape[0]
     mask_k = (1 << (2 * k)) - 1
     v = edges24 & mask_k  # last k bases
@@ -202,13 +231,60 @@ def _build_adjacency(
     u = u_id.to(torch.int64)
     ok = (edges24 != SENTINEL) & (u >= 0) & (v_id >= 0)
     dump = 4 * N
-    out_slot = torch.where(ok, u * 4 + last, dump)
-    in_slot = torch.where(ok, v_id * 4 + first, dump)
+    out[torch.where(ok, u * 4 + last, dump)] = torch.where(ok, v_id, -1).to(torch.int32)
+    in_[torch.where(ok, v_id * 4 + first, dump)] = torch.where(ok, u, -1).to(torch.int32)
+
+
+def build_adjacency_chunked(
+    kmers23: torch.Tensor,
+    edges24: torch.Tensor,
+    u_id: torch.Tensor,
+    k: int = 23,
+    chunk_edges: int | None = None,
+):
+    """Flat out/in adjacency ``[4N]`` from the unique (k+1)-mer table, in
+    passes of at most ``chunk_edges`` edges (default
+    ``ADJ_SINGLE_SHOT_MAX_EDGES``; a table no larger goes in one pass).
+
+    Each pass joins N + C rows instead of N + E, so the peak is the node
+    table, one chunk's join and the two accumulators. Every pass sorts
+    the node table again, so chunks should be as large as memory allows.
+    Chunks of the sorted edge table keep each pass's out-slots sorted."""
+    if chunk_edges is None:
+        chunk_edges = ADJ_SINGLE_SHOT_MAX_EDGES
+    N = kmers23.shape[0]
+    E = int(edges24.shape[0])
     out = torch.full((4 * N + 1,), -1, dtype=torch.int32, device=kmers23.device)
-    out[out_slot] = torch.where(ok, v_id, -1).to(torch.int32)
     in_ = torch.full((4 * N + 1,), -1, dtype=torch.int32, device=kmers23.device)
-    in_[in_slot] = torch.where(ok, u, -1).to(torch.int32)
+    step = max(int(chunk_edges), 1)
+    for lo in range(0, E, step):
+        _adjacency_scatter_chunk(
+            kmers23, edges24[lo : lo + step], u_id[lo : lo + step], out, in_, k=k
+        )
     return out[: 4 * N], in_[: 4 * N]
+
+
+def build_dbg(
+    kmers23: torch.Tensor,
+    counts23: torch.Tensor,
+    edges24: torch.Tensor,
+    u_id: torch.Tensor,
+    k: int = 23,
+) -> DBG:
+    """Assemble a DBG from the sorted unique k-mer table, its counts, the
+    sorted unique (k+1)-mer table and each edge's source node id.
+
+    The adjacency goes in one pass up to ``ADJ_SINGLE_SHOT_MAX_EDGES``
+    edges and in chunks of that size above it. (The JAX
+    package also chunks when the node table alone passes its cutoff; a
+    chunk's join still sorts the whole node table, so that gate saves
+    nothing here, and every node table comes with at least as many edges
+    less the reads' last windows.)"""
+    out, in_ = build_adjacency_chunked(kmers23, edges24, u_id, k=k)
+    return DBG(
+        k=k, kmers=kmers23, mult=counts23.to(torch.int32), out=out, in_=in_,
+        valid=torch.ones(kmers23.shape[0], dtype=torch.bool, device=kmers23.device),
+    )
 
 
 def _bucket_size(n: int) -> int:
@@ -225,9 +301,27 @@ def _bucket_size(n: int) -> int:
     return 2 * p
 
 
-# The single-pass window budget of ``mcaat_tpu`` (pipeline.py:140). The
-# chunked multi-pass build above it is not ported yet (ROADMAP queue 1).
-SINGLE_PASS_MAX_WINDOWS = 384_000_000
+# Device budgets of the graph build, from the peaks measured on an
+# NVIDIA H100 80GB HBM3 (85.0 GB; PERF.md, "Build budgets"). They move
+# memory and time, never the graph: no part or chunk boundary changes a
+# table entry.
+#
+# Windows (both strands) counted in one pass. The single-pass peak is
+# 48.8-49.0 bytes per window (the window sort), so 1.1B windows peak near
+# 53.7 GB, 63% of the card. More windows go in row parts of at most this
+# many windows. Measured in parts at 2-3B windows: a part's count with the
+# resident counted parts beside it (kmer/count.py::DEVICE_PARTS_BUDGET)
+# peaked at 53.7-59.1 GB; a merge of two parts takes 52-59 bytes per
+# merged row above what is resident (65.4 GB at 1.02B rows), so it is the
+# unique tables, not the windows, that bound the parted build.
+SINGLE_PASS_MAX_WINDOWS = 1_100_000_000
+# Unique (k+1)-mers joined and scattered in one adjacency pass; larger
+# edge tables go in chunks of this size. A pass peaks near 105 bytes per
+# node (tables, accumulators, the node table's sort) plus 72 per chunk
+# edge: 486M nodes peaked at 58.3 GB in 100M-edge chunks and ran out of
+# memory in 350M-edge chunks, and about 540M nodes stay under 75% of the
+# card. This, not the window count, is the largest graph one card takes.
+ADJ_SINGLE_SHOT_MAX_EDGES = 100_000_000
 
 
 def build_dbg_from_reads(
@@ -235,17 +329,23 @@ def build_dbg_from_reads(
     lengths: np.ndarray,
     k: int = 23,
     add_reverse_complement: bool = True,
-    chunk_windows: int = SINGLE_PASS_MAX_WINDOWS,
+    chunk_windows: int | None = None,
     verbose: bool = False,
     endpoints_out: dict | None = None,
     device: str | torch.device = "cuda",
 ) -> DBG:
-    """End-to-end graph build from a padded read-code matrix (single pass).
+    """End-to-end graph build from a padded read-code matrix.
 
     Replaces ``SDBGBuild`` (reference ``src/sdbg_build.cpp``): the
     (k+1)-mer windows (plus their reverse complements, as bit math) are
     counted, the node table and each edge's source id are derived from
     the unique edge table, and the adjacency is scattered.
+
+    Up to ``chunk_windows`` windows (default ``SINGLE_PASS_MAX_WINDOWS``;
+    0 means no limit) are counted in one pass. Above it the rows go in
+    parts of ``chunk_windows // windows_per_row`` rows: each part is
+    uploaded on its own, counted, freed, and its table joins a merge
+    stack. The adjacency is :func:`build_dbg`'s.
 
     With ``endpoints_out`` (a dict) the build stashes each input row's
     FIRST/LAST packed k-window under ``first_km``/``last_km`` (int64
@@ -256,48 +356,53 @@ def build_dbg_from_reads(
 
     dev = torch.device(device)
     _tick = tick_printer("build", verbose, dev)
+    if chunk_windows is None:
+        chunk_windows = SINGLE_PASS_MAX_WINDOWS
     codes_np = np.asarray(codes, dtype=np.uint8)
     lengths_np = np.asarray(lengths, dtype=np.int32)
     R, L = codes_np.shape
     max_true = int(lengths_np.max()) if lengths_np.size else 0
     w24 = max(min(L - k, max_true - k), 0)
-    n_windows = R * w24 * (2 if add_reverse_complement else 1)
+    strands = 2 if add_reverse_complement else 1
+    n_windows = R * w24 * strands
+    rows = R
     if chunk_windows and n_windows > chunk_windows:
-        raise NotImplementedError(
-            f"{n_windows} windows exceed the {chunk_windows}-window "
-            "single-pass budget; the chunked multi-pass build is not ported "
-            "yet (ROADMAP.md queue 1: chunked build and the 80 GB budget)"
-        )
+        rows = max(chunk_windows // (max(w24, 1) * strands), 1)
+    bounds = [(lo, min(lo + rows, R)) for lo in range(0, max(R, 1), rows)]
 
-    codes_t = torch.as_tensor(codes_np, device=dev)
-    lengths_t = torch.as_tensor(lengths_np, device=dev)
-    first = extract_first_kmer(codes_t, lengths_t, k)
-    last = extract_last_kmer(codes_t, lengths_t, k)
+    firsts: list[torch.Tensor] = []
+    lasts: list[torch.Tensor] = []
+
+    def upload(lo: int, hi: int):
+        codes_t = torch.as_tensor(codes_np[lo:hi], device=dev)
+        lengths_t = torch.as_tensor(lengths_np[lo:hi], device=dev)
+        firsts.append(extract_first_kmer(codes_t, lengths_t, k))
+        lasts.append(extract_last_kmer(codes_t, lengths_t, k))
+        return codes_t, lengths_t
+
+    # the RC read's window multiset is the elementwise RC of the forward
+    # windows, so no RC code matrix is ever built; the generator uploads
+    # one part at a time and holds no reference to it
+    u24, c24, n24 = count_edges_parts(
+        (upload(lo, hi) for lo, hi in bounds), k, w_cap=w24,
+        add_rc=add_reverse_complement, verbose=verbose and len(bounds) > 1,
+        device=dev,
+    )
+    _tick(f"upload + edge count ({len(bounds)} part(s), {n24} unique)")
+    first = torch.cat(firsts)
+    last = torch.cat(lasts)
     if endpoints_out is not None:
         endpoints_out["first_km"] = first
         endpoints_out["last_km"] = last
-    _tick("upload")
-
-    km1 = extract_kmers(codes_t, lengths_t, k + 1, w_cap=w24).reshape(-1)
-    del codes_t
-    if add_reverse_complement:
-        # the RC read's window multiset is the elementwise RC of the
-        # forward windows, so no RC code matrix is ever built
-        km1 = torch.cat([km1, revcomp_kmers(km1, k + 1)])
-    u24, c24, n24 = count_unique(km1)
-    del km1
-    _tick(f"edge count ({n24} unique)")
     if add_reverse_complement:
         # the RC strand's last k-window is the RC of the forward FIRST
         last = torch.cat([last, revcomp_kmers(first, k)])
     u_l, c_l, _n_l = count_unique(last)
+    del last
     _tick("last-window count")
     u23, c23, n23, u_id = derive_nodes_from_edges(u24, c24, u_l, c_l)
+    del c24, u_l, c_l
     _tick(f"derive nodes ({n23} nodes)")
-    out, in_ = _build_adjacency(u23, u24, u_id, k=k)
-    graph = DBG(
-        k=k, kmers=u23, mult=c23, out=out, in_=in_,
-        valid=torch.ones(n23, dtype=torch.bool, device=dev),
-    )
+    graph = build_dbg(u23, c23, u24, u_id, k=k)
     _tick("adjacency")
     return graph

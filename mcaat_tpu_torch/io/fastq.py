@@ -166,3 +166,12 @@ def decode_kmer(packed: int, k: int) -> str:
     for shift in range(2 * (k - 1), -2, -2):
         chars.append("ACGT"[(int(packed) >> shift) & 3])
     return "".join(chars)
+
+
+def encode_kmer(kmer: str) -> int:
+    """Pack a k-mer string into a 2-bit integer (first base = high bits;
+    a non-ACGT character codes as T, like the parser)."""
+    v = 0
+    for ch in kmer:
+        v = (v << 2) | {"A": 0, "C": 1, "G": 2, "T": 3}.get(ch.upper(), 3)
+    return v

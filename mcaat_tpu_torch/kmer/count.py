@@ -10,12 +10,21 @@ Tables here have exact sizes: where the JAX package pads to bucket sizes
 so that XLA can reuse compiled programs, torch runs eagerly and needs no
 padding. Dead windows are SENTINEL, which sorts last.
 
+Past the single-pass window budget the (k+1)-mers are counted in row
+parts, and the counted tables merge in a binary-counter stack that
+spills its oldest parts to pinned host memory past
+``DEVICE_PARTS_BUDGET`` (:func:`count_edges_parts`).
+
 Unsigned 64-bit note: torch has no uint64 arithmetic, and ``>>`` on
 int64 is arithmetic, so every right shift below is masked.
 """
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from mcaat_tpu_torch import SENTINEL
@@ -74,7 +83,9 @@ def count_unique(kmers_flat: torch.Tensor):
     s = torch.sort(kmers_flat, stable=True).values
     s = s[: int((s != SENTINEL).sum())]  # SENTINEL sorts last
     unique, counts = torch.unique_consecutive(s, return_counts=True)
-    return unique, counts.to(torch.int32), int(unique.shape[0])
+    # unique_consecutive shrinks its output in place, so the tensor keeps
+    # an input-sized allocation; the clone holds only the live rows
+    return unique.clone(), counts.to(torch.int32), int(unique.shape[0])
 
 
 def extract_first_kmer(codes: torch.Tensor, lengths: torch.Tensor, k: int) -> torch.Tensor:
@@ -108,9 +119,252 @@ def _compact_counted_sorted(keys: torch.Tensor, cnts: torch.Tensor):
     sums are an ``index_add_`` over the inverse, not bounded shifted
     adds, so there is no overflow contract to check."""
     unique, inverse = torch.unique_consecutive(keys, return_inverse=True)
+    unique = unique.clone()  # drop the input-sized allocation (see count_unique)
     counts = torch.zeros(unique.shape[0], dtype=torch.int64, device=keys.device)
     counts.index_add_(0, inverse, cnts.to(torch.int64))
     return unique, counts.to(torch.int32), int(unique.shape[0]), inverse
+
+
+def merge_counted(unique_a, counts_a, unique_b, counts_b):
+    """Merge two (sorted unique, counts) tables into one.
+
+    Returns ``(unique, counts, n_unique, overflow)``. ``overflow`` counts
+    keys that occur more than twice in the merge sort, which happens only
+    when an input was not a unique table: the JAX version's compaction is
+    bounded to runs of two and under-counts then, so it reports this
+    scalar. The run sums here have no bound, but the check is kept so
+    that a non-unique input is caught the same way.
+    """
+    keys = torch.cat([unique_a, unique_b])
+    cnts = torch.cat([counts_a, counts_b])
+    keys, order = torch.sort(keys, stable=True)
+    cnts = cnts[order]
+    del order
+    overflow = int(((keys[2:] == keys[:-2]) & (keys[2:] != SENTINEL)).sum())
+    keys = keys[: int((keys != SENTINEL).sum())]  # SENTINEL sorts last
+    unique, counts, n, _inv = _compact_counted_sorted(keys, cnts[: keys.shape[0]])
+    return unique, counts, n, overflow
+
+
+# Bytes of counted parts (int64 key + int32 count per row) that the
+# chunked counters keep on the device. Past it the oldest parts move to
+# pinned host memory and are uploaded again at their merge. Sized with the
+# single-pass budget (graph/dbg.py::SINGLE_PASS_MAX_WINDOWS, 53.7 GB on an
+# 80 GB H100) so that a part's count plus the resident parts stay at or
+# under 75% of the card (53.7-59.1 GB measured at 2-3B windows). A merge
+# adds 52-59 bytes per merged row to what is resident (graph/dbg.py).
+DEVICE_PARTS_BUDGET = 10_000_000_000
+
+
+@dataclass
+class _Part:
+    """One entry of the merge stack: a counted table, the level of the
+    binary counter it sits at, and whether it was spilled to the host."""
+
+    u: torch.Tensor
+    c: torch.Tensor
+    level: int
+    device: torch.device
+    spilled: bool = False
+
+
+def _part_nbytes(u) -> int:
+    """(int64 key + int32 count) bytes of one part."""
+    return int(u.shape[0]) * 12
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``, in pinned memory when ``t`` is on a card."""
+    if t.device.type == "cpu":
+        return t.clone()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def _spill(p: _Part) -> None:
+    p.u, p.c = _to_host(p.u), _to_host(p.c)
+    p.spilled = True
+
+
+def _merge_two(a: _Part, b: _Part) -> _Part:
+    """Merge two stack entries into one at the next level."""
+    dev = a.device
+    mu, mc, _n, ovf = merge_counted(
+        a.u.to(dev, non_blocking=True), a.c.to(dev, non_blocking=True),
+        b.u.to(dev, non_blocking=True), b.c.to(dev, non_blocking=True),
+    )
+    if ovf != 0:
+        raise RuntimeError("merge_counted fed a non-unique table")
+    return _Part(mu, mc, max(a.level, b.level) + 1, dev)
+
+
+def _merge_stack_push(stack: list, u: torch.Tensor, cnt: torch.Tensor) -> None:
+    """Push one counted table onto a binary-counter merge stack.
+
+    Equal-level neighbours merge at once (mergesort's binary counter), so
+    at most about log2(K) parts of K are alive. When the device-resident
+    parts exceed ``DEVICE_PARTS_BUDGET`` bytes, the oldest move to the
+    host (pinned) and are uploaded again at their merge.
+    """
+    stack.append(_Part(u, cnt, 0, u.device))
+    while len(stack) >= 2 and stack[-1].level == stack[-2].level:
+        b = stack.pop()
+        a = stack.pop()
+        stack.append(_merge_two(a, b))
+    live = sum(_part_nbytes(p.u) for p in stack if not p.spilled)
+    for p in stack:  # oldest (merged last) first
+        if live <= DEVICE_PARTS_BUDGET:
+            break
+        if not p.spilled:
+            live -= _part_nbytes(p.u)
+            _spill(p)
+
+
+def _merge_stack_drain(stack: list, device):
+    """Merge what is left on the stack (newest, smallest first):
+    ``(unique, counts, n)`` on ``device``."""
+    dev = torch.device(device)
+    if not stack:
+        return (
+            torch.zeros(0, dtype=torch.int64, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
+            0,
+        )
+    while len(stack) > 1:
+        b = stack.pop()
+        a = stack.pop()
+        stack.append(_merge_two(a, b))
+    p = stack.pop()
+    return p.u.to(dev), p.c.to(dev), int(p.u.shape[0])
+
+
+def count_unique_chunked(codes, lengths, k: int, chunk_rows: int, device="cuda"):
+    """Memory-bounded k-mer counting: count row chunks, then merge.
+
+    Peak device memory is one chunk's windows plus one pairwise merge.
+    Returns ``(unique, counts, n_unique)`` like :func:`count_unique`.
+    """
+    dev = torch.device(device)
+    codes = np.asarray(codes, dtype=np.uint8)
+    lengths = np.asarray(lengths, dtype=np.int32)
+
+    def counted():
+        for lo in range(0, codes.shape[0], chunk_rows):
+            c = torch.as_tensor(codes[lo : lo + chunk_rows], device=dev)
+            ln = torch.as_tensor(lengths[lo : lo + chunk_rows], device=dev)
+            km = extract_kmers(c, ln, k).reshape(-1)
+            del c, ln
+            yield count_unique(km)
+
+    return _reduce_counted(counted(), dev, verbose=False)
+
+
+def _count_edge_part(codes, lengths, k: int, w_cap, add_rc: bool = False):
+    """(k+1)-mer count of one row part already on the device. With
+    ``add_rc`` the reverse-complement strand joins as the elementwise RC
+    of the forward windows, so no RC code matrix is ever built."""
+    km1 = extract_kmers(codes, lengths, k + 1, w_cap=w_cap).reshape(-1)
+    if add_rc:
+        km1 = torch.cat([km1, revcomp_kmers(km1, k + 1)])
+    return count_unique(km1)
+
+
+def _count_edge_chunk(codes, lengths, start: int, k: int, w_cap, chunk_rows: int,
+                      add_rc: bool = False):
+    """(k+1)-mer count of rows ``[start, start + chunk_rows)`` of a code
+    matrix that is on the device whole (sliced there, not on the host)."""
+    return _count_edge_part(
+        codes[start : start + chunk_rows], lengths[start : start + chunk_rows],
+        k, w_cap, add_rc,
+    )
+
+
+def count_edges_chunked(codes, lengths, k: int, chunk_rows: int,
+                        w_cap: int | None = None, verbose: bool = False,
+                        add_rc: bool = False, device="cuda"):
+    """Memory-bounded (k+1)-mer counting of a code matrix uploaded once:
+    per-chunk count + merge stack. Only the edge table is counted; the
+    node table is derived from it (:func:`derive_nodes_from_edges`).
+    Returns ``(u_k1, c_k1, n_k1)``."""
+    dev = torch.device(device)
+    codes_t = torch.as_tensor(np.asarray(codes, dtype=np.uint8), device=dev)
+    lengths_t = torch.as_tensor(np.asarray(lengths, dtype=np.int32), device=dev)
+    counted = (
+        _count_edge_chunk(codes_t, lengths_t, s, k, w_cap, chunk_rows, add_rc)
+        for s in range(0, max(int(codes_t.shape[0]), 1), chunk_rows)
+    )
+    return _reduce_counted(counted, dev, verbose)
+
+
+def count_edges_parts(parts, k: int, w_cap: int | None = None,
+                      add_rc: bool = False, verbose: bool = False, device="cuda"):
+    """Memory-bounded (k+1)-mer counting over row parts uploaded one at a
+    time. ``parts`` is an iterable of ``(codes, lengths)`` device tensors
+    (a generator that uploads each part when asked keeps one on the
+    device at a time); each part is counted and dropped before its table
+    joins the merge stack. Returns ``(u_k1, c_k1, n_k1)``."""
+    def counted():
+        for codes_t, lengths_t in parts:
+            res = _count_edge_part(codes_t, lengths_t, k, w_cap, add_rc)
+            del codes_t, lengths_t
+            yield res
+
+    return _reduce_counted(counted(), torch.device(device), verbose)
+
+
+def _reduce_counted(counted, dev: torch.device, verbose: bool):
+    """Push each ``(u, c, n)`` of ``counted`` onto a merge stack, drain
+    it, and with ``verbose`` print the count and merge seconds of each
+    part and how many parts went to the host."""
+    from mcaat_tpu_torch.utils.profiling import sync
+
+    stack: list = []
+    t_count = t_merge = 0.0
+    t0 = time.perf_counter()
+    pi = 0
+    for pi, (u, cnt, nu) in enumerate(counted, start=1):
+        if verbose:
+            sync(dev)
+        tm = time.perf_counter()
+        _merge_stack_push(stack, u, cnt)
+        del u, cnt
+        if verbose:
+            sync(dev)
+        tm2 = time.perf_counter()
+        t_count += tm - t0
+        t_merge += tm2 - tm
+        if verbose:
+            print(
+                f"    [build]     part {pi}: count {tm - t0:.2f}s, "
+                f"merge {tm2 - tm:.2f}s ({nu} unique)",
+                flush=True,
+            )
+        t0 = time.perf_counter()
+    if verbose:
+        spilled = sum(1 for p in stack if p.spilled)
+        print(
+            f"    [build]   {pi} part counts: {t_count:.2f}s + interleaved merges: "
+            f"{t_merge:.2f}s (stack={len(stack)}, host-spilled={spilled})",
+            flush=True,
+        )
+    res = _merge_stack_drain(stack, dev)
+    if verbose:
+        sync(dev)
+        print(f"    [build]   final merge: {time.perf_counter() - t0:.2f}s", flush=True)
+    return res
+
+
+def count_kmers_for_reads(codes, lengths, k: int, device="cuda"):
+    """Host-facing: unique sorted k-mers and their counts (numpy) for a
+    read batch."""
+    dev = torch.device(device)
+    kmers = extract_kmers(
+        torch.as_tensor(np.asarray(codes, dtype=np.uint8), device=dev),
+        torch.as_tensor(np.asarray(lengths, dtype=np.int32), device=dev), k,
+    )
+    unique, counts, _n = count_unique(kmers.reshape(-1))
+    return unique.cpu().numpy(), counts.cpu().numpy()
 
 
 def derive_nodes_from_edges(u_k1, c_k1, u_last, c_last):

@@ -105,6 +105,18 @@ def _load() -> Optional[ctypes.CDLL]:
             c.c_int64,
             c.POINTER(c.c_int64),
         ]
+    if hasattr(lib, "mcaat_poa_consensus"):  # older .so builds lack it
+        lib.mcaat_poa_consensus.restype = c.c_int
+        lib.mcaat_poa_consensus.argtypes = [
+            c.c_char_p,
+            c.POINTER(c.c_int64),
+            c.c_int64,
+            c.c_int,
+            c.c_int,
+            c.c_int,
+            c.POINTER(c.c_char_p),
+            c.POINTER(c.c_int64),
+        ]
     if hasattr(lib, "mcaat_scc"):  # older .so builds lack it
         lib.mcaat_scc.restype = c.c_int64
         lib.mcaat_scc.argtypes = [
@@ -277,3 +289,31 @@ def enumerate_cycles(
             cycles.append(flat[offsets[ci] : offsets[ci + 1]].tolist())
         results[int(g_starts[g])] = cycles
     return results
+
+
+def poa_consensus(sequences, match: int = 3, mismatch: int = -5, gap: int = -3):
+    """Native POA consensus; None when the library is unavailable.
+    Result-identical to ``poa.compute_consensus_py``."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "mcaat_poa_consensus"):
+        return None
+    c = ctypes
+    blob = "".join(sequences).encode("ascii")
+    offsets = (c.c_int64 * (len(sequences) + 1))()
+    acc = 0
+    for i, s in enumerate(sequences):
+        offsets[i] = acc
+        acc += len(s)
+    offsets[len(sequences)] = acc
+    out = c.c_char_p()
+    out_len = c.c_int64()
+    rc = lib.mcaat_poa_consensus(
+        blob, offsets, len(sequences), match, mismatch, gap,
+        c.byref(out), c.byref(out_len),
+    )
+    if rc != 0:
+        return None
+    try:
+        return c.string_at(out, out_len.value).decode("ascii")
+    finally:
+        lib.mcaat_free(out)

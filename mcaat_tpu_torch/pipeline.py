@@ -6,17 +6,21 @@ cycle finding → read mapping → spacer ordering → systems → report. The
 device stages run on torch tensors on ``device``; this file is control
 flow only.
 
-Not ported yet, and refused with ``NotImplementedError`` naming their
-ROADMAP.md item: stage checkpoints (``--resume``), the debug pipeline
-(``--debug-pipeline``), the multi-device path (more than one visible
-card with ``--mesh auto``), and the chunked build above the single-pass
-window budget.
+With a ``checkpoint_dir`` every stage boundary is saved
+(``checkpoint.py``) and completed stages are skipped on rerun.
+:func:`run_debug_pipeline` is the reference's DEBUG-main extension.
+
+Not ported yet, and refused with ``NotImplementedError`` naming its
+ROADMAP.md item: the multi-device path (more than one visible card with
+``--mesh auto``).
 """
 
 from __future__ import annotations
 
 import sys
 import time
+import zipfile
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,6 +33,7 @@ from mcaat_tpu_torch.evaluation import (
     get_number_of_duplicate_spacers,
     get_string_similarity,
 )
+from mcaat_tpu_torch.graph import dbg as _dbg
 from mcaat_tpu_torch.graph.dbg import DBG, build_dbg_from_reads
 from mcaat_tpu_torch.ordering.ordering import (
     filter_subproblems,
@@ -106,6 +111,11 @@ def _check_single_device(settings: Settings, device: torch.device) -> None:
         )
 
 
+# the device memory, in GB, that graph/dbg.py's build budgets were sized
+# for; --ram scales the window budget against it
+BUDGET_CARD_GB = 80.0
+
+
 def build_graph_from_settings(
     settings: Settings,
     verbose: bool = False,
@@ -113,7 +123,8 @@ def build_graph_from_settings(
     endpoints_out: dict | None = None,
     device: str | torch.device | None = None,
 ) -> DBG:
-    """STEP: graph build (≙ SDBGBuild, src/sdbg_build.cpp), single pass.
+    """STEP: graph build (≙ SDBGBuild, src/sdbg_build.cpp), in one pass
+    or in row parts above the window budget.
 
     ``batches`` reuses already-parsed per-file ReadBatches.
     ``endpoints_out`` is filled with the device-resident per-read
@@ -125,11 +136,11 @@ def build_graph_from_settings(
     if batches is None:
         batches = _load_input_batches(settings)
     codes, lengths = _concat_batches(batches)
-    # --ram scales the single-pass window budget like the JAX package
-    # (which sized its 384M-window budget for a 16 GB chip)
-    chunk_windows = 384_000_000
-    if settings.ram_explicit and settings.ram and settings.ram < 16.0:
-        chunk_windows = max(int(chunk_windows * settings.ram / 16.0), 2_000_000)
+    # --ram scales the single-pass window budget (sized for an 80 GB
+    # card) down in proportion, to a floor of 2M windows
+    chunk_windows = _dbg.SINGLE_PASS_MAX_WINDOWS
+    if settings.ram_explicit and settings.ram and settings.ram < BUDGET_CARD_GB:
+        chunk_windows = max(int(chunk_windows * settings.ram / BUDGET_CARD_GB), 2_000_000)
     eps_rows = {} if endpoints_out is not None else None
     graph = build_dbg_from_reads(
         codes,
@@ -433,6 +444,107 @@ def print_results(found_systems: list[FoundSystem]) -> None:
     )
 
 
+def multiplicity_histogram(graph: DBG) -> list[tuple[int, int]]:
+    """``[(multiplicity, node count)]`` over the valid nodes, ascending
+    (computed on the graph's device)."""
+    values, counts = torch.unique(graph.mult[graph.valid], sorted=True, return_counts=True)
+    return list(zip(values.tolist(), counts.tolist()))
+
+
+def run_debug_pipeline(
+    settings: Settings,
+    verbose: bool = True,
+    device: str | torch.device | None = None,
+) -> PipelineResult:
+    """The reference's DEBUG-main extension (src/main.cpp:358-493):
+    node-multiplicity histogram → cycles → Filters → CRISPRAnalyzer →
+    protospacer isolation → phage curation. Writes
+    ``node_multiplicities.txt``, ``grouped_paths_protospacers.txt`` and
+    ``QualityPaths_BeamWidth50.fasta`` into the output folder beside the
+    report. ``result.profile`` holds each stage's seconds."""
+    import os
+
+    from mcaat_tpu_torch.phage import PhageCurator
+    from mcaat_tpu_torch.protospacers import IsolateProtospacers, create_repeat_to_spacer_nodes
+    from mcaat_tpu_torch.systems.filters import Filters
+
+    dev = resolve_device(device)
+    _check_single_device(settings, dev)
+    configure_threads(settings.threads)
+    prof = Profiler(dev)
+    result = PipelineResult(profile=prof)
+    out_dir = settings.output_folder or "."
+
+    with prof.stage("graph_build"):
+        graph = build_graph_from_settings(settings, device=dev)
+    prof.count("graph_build", nodes=graph.size)
+
+    # ≙ DEBUG main's node-multiplicity histogram dump (src/main.cpp:497-510)
+    with prof.stage("histogram"):
+        hist = multiplicity_histogram(graph)
+        with open(os.path.join(out_dir, "node_multiplicities.txt"), "w") as fh:
+            for m, c in hist:
+                fh.write(f"Multiplicity {m}: {c} nodes\n")
+    if verbose:
+        print("Node Multiplicity Distribution:")
+
+    cfs = settings.cycle_finder_settings
+    # full_prune: the stages below consume whole-graph validity, so the
+    # tip clip cannot be deferred to the candidate neighbourhood here
+    with prof.stage("cycle_search"):
+        graph, cycles_map = find_cycles(
+            graph,
+            threshold_multiplicity=cfs.threshold_multiplicity,
+            cycle_min_length=cfs.cycle_min_length,
+            cycle_max_length=cfs.cycle_max_length,
+            verbose=verbose,
+            full_prune=True,
+        )
+        host = graph.to_host()
+    prof.count("cycle_search", start_nodes=len(cycles_map))
+    result.graph = graph
+    result.cycles_map = cycles_map
+
+    with prof.stage("filters"):
+        if verbose:
+            print("FILTERS START:")
+        systems, n_spacers = Filters(host, cycles_map).list_arrays()
+    if verbose:
+        print(f"Number of spacers: {n_spacers} before cleaning")
+        print("POST PROCESSING START:")
+    analyzer = CRISPRAnalyzer(
+        systems, settings.output_file or "CRISPR_Arrays.txt", device=dev
+    )
+    with prof.stage("report"):
+        result.report_text = analyzer.run_analysis()
+    if verbose:
+        print(f"Saved in: {analyzer.output_path}")
+
+    with prof.stage("protospacers"):
+        repeat_to_spacer_nodes = create_repeat_to_spacer_nodes(host, analyzer.get_systems())
+        if verbose:
+            print(
+                f"Created repeat_to_spacer_nodes map with "
+                f"{len(repeat_to_spacer_nodes)} entries."
+            )
+        isolator = IsolateProtospacers.from_repeat_to_spacer_nodes(host, repeat_to_spacer_nodes)
+        in_map, out_map = isolator.get_protospacer_nodes()
+        grouped = isolator.depth_limited_paths_from_in_to_out(in_map, out_map, 50, 1)
+        isolator.write_paths_to_file(
+            grouped, os.path.join(out_dir, "grouped_paths_protospacers.txt")
+        )
+
+    with prof.stage("phage"):
+        curator = PhageCurator(graph=host, grouped_paths=grouped, cycles=cycles_map)
+        curator.find_quality_paths_beam_search(
+            3000, 3010, os.path.join(out_dir, "QualityPaths_BeamWidth50.fasta"), 50
+        )
+    if verbose:
+        print("Stage timings:")
+        print(prof.report())
+    return result
+
+
 def run_pipeline(
     settings: Settings,
     verbose: bool = True,
@@ -443,12 +555,14 @@ def run_pipeline(
 
     ``device`` defaults to ``MCAAT_TORCH_DEVICE`` or ``cuda`` and raises
     when CUDA is asked for and missing (see :func:`resolve_device`).
+
+    With ``checkpoint_dir`` every stage boundary is saved (``graph.npz``;
+    ``graph_pruned.npz`` with ``cycles.json``; ``reads.json``) and the
+    stages whose artifacts exist are skipped on rerun. When the graph
+    came from a checkpoint, the mapper parses the inputs itself.
     """
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "stage checkpoints (--resume) are not ported yet "
-            "(ROADMAP.md queue 1: checkpoint/--resume)"
-        )
+    import os
+
     dev = resolve_device(device)
     _check_single_device(settings, dev)
     configure_threads(settings.threads)
@@ -457,28 +571,74 @@ def run_pipeline(
     result = PipelineResult()
     t0 = time.time()
 
+    ckpt = None
+    if checkpoint_dir:
+        from mcaat_tpu_torch import checkpoint as ckpt
+
+        os.makedirs(checkpoint_dir, exist_ok=True)
+
+    def _ck_path(name: str) -> str:
+        return os.path.join(checkpoint_dir, name)
+
+    def _resume(stage: str, load, *names):
+        """``load(*paths)`` of the artifacts ``names``, or None when one is
+        missing or unreadable: the stage then runs again."""
+        if ckpt is None or not all(os.path.exists(_ck_path(n)) for n in names):
+            return None
+        try:
+            return load(*(_ck_path(n) for n in names))
+        except (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile, zlib.error) as e:
+            print(f"{stage} checkpoint unreadable ({type(e).__name__}: {e}); recomputing")
+            return None
+
+    # a finished cycle stage needs no graph.npz: its pruned graph is the
+    # one every later stage reads
+    cycles_ck = _resume(
+        "Cycles", lambda c, g: (ckpt.load_cycles(c), ckpt.load_graph(g, dev)),
+        "cycles.json", "graph_pruned.npz",
+    )
+    input_batches = None
     input_endpoints: dict = {}
-    with prof.stage("graph_build"):
-        input_batches = _load_input_batches(settings)
-        graph = build_graph_from_settings(
-            settings, verbose=verbose, batches=input_batches,
-            endpoints_out=input_endpoints, device=dev,
-        )
-    prof.count("graph_build", nodes=graph.size)
-    if verbose:
-        print(f"Graph built: {graph.size} nodes ({time.time() - t0:.2f}s)")
+    if cycles_ck is not None:
+        cycles_map, graph = cycles_ck
+        if verbose:
+            print(f"Graph loaded from checkpoint: {graph.size} nodes (graph_pruned.npz)")
+    else:
+        graph = _resume("Graph", lambda g: ckpt.load_graph(g, dev), "graph.npz")
+        if graph is not None:
+            if verbose:
+                print(f"Graph loaded from checkpoint: {graph.size} nodes")
+        else:
+            with prof.stage("graph_build"):
+                input_batches = _load_input_batches(settings)
+                graph = build_graph_from_settings(
+                    settings, verbose=verbose, batches=input_batches,
+                    endpoints_out=input_endpoints, device=dev,
+                )
+            prof.count("graph_build", nodes=graph.size)
+            if ckpt:
+                ckpt.save_graph(_ck_path("graph.npz"), graph)
+            if verbose:
+                print(f"Graph built: {graph.size} nodes ({time.time() - t0:.2f}s)")
     result.graph = graph
 
     cfs = settings.cycle_finder_settings
-    with prof.stage("cycle_search"):
-        graph, cycles_map = find_cycles(
-            graph,
-            threshold_multiplicity=cfs.threshold_multiplicity,
-            cycle_min_length=cfs.cycle_min_length,
-            cycle_max_length=cfs.cycle_max_length,
-            verbose=verbose,
-        )
-    prof.count("cycle_search", start_nodes=len(cycles_map))
+    if cycles_ck is not None:
+        if verbose:
+            print(f"Cycles loaded from checkpoint: {len(cycles_map)} start nodes")
+    else:
+        with prof.stage("cycle_search"):
+            graph, cycles_map = find_cycles(
+                graph,
+                threshold_multiplicity=cfs.threshold_multiplicity,
+                cycle_min_length=cfs.cycle_min_length,
+                cycle_max_length=cfs.cycle_max_length,
+                verbose=verbose,
+            )
+        prof.count("cycle_search", start_nodes=len(cycles_map))
+        if ckpt:
+            ckpt.save_graph(_ck_path("graph_pruned.npz"), graph)
+            ckpt.save_cycles(_ck_path("cycles.json"), cycles_map)
     result.cycles_map = cycles_map
     result.cycles = cycles_map_to_cycles(cycles_map)
     if verbose:
@@ -506,18 +666,28 @@ def run_pipeline(
         return graph.kmers[gids_t], gids_t
 
     use_region_join = graph.size >= _condense_threshold()
-    f1, f2 = settings.fastq_files()
-    with prof.stage("read_mapping"):
-        # first occurrence wins on a duplicated path
-        batches_by_path: dict = {}
-        for path, b in input_batches:
-            batches_by_path.setdefault(path, b)
-        reads = get_reads(
-            graph, f1, f2, result.cycles, verbose=verbose,
-            batches=batches_by_path, endpoints=input_endpoints or None,
-            region_provider=_region_provider if use_region_join else None,
-        )
-    prof.count("read_mapping", reads=len(reads))
+    reads = _resume("Reads", lambda r: ckpt.load_reads(r), "reads.json")
+    if reads is not None:
+        if verbose:
+            print(f"Reads loaded from checkpoint: {len(reads)}")
+    else:
+        f1, f2 = settings.fastq_files()
+        with prof.stage("read_mapping"):
+            # first occurrence wins on a duplicated path; after a graph
+            # checkpoint nothing was parsed and the mapper parses itself
+            batches_by_path = None
+            if input_batches is not None:
+                batches_by_path = {}
+                for path, b in input_batches:
+                    batches_by_path.setdefault(path, b)
+            reads = get_reads(
+                graph, f1, f2, result.cycles, verbose=verbose,
+                batches=batches_by_path, endpoints=input_endpoints or None,
+                region_provider=_region_provider if use_region_join else None,
+            )
+        prof.count("read_mapping", reads=len(reads))
+        if ckpt:
+            ckpt.save_reads(_ck_path("reads.json"), reads)
     result.reads = reads
     if verbose:
         print(f"    ▸ Found {len(reads)} reads")

@@ -177,6 +177,10 @@ class Settings:
             dss.repeat_max_length = int(val)
         elif key == "mesh":
             self.mesh = val
+        elif key == "resume":
+            self.resume = val.lower() in ("true", "1", "yes")
+        elif key == "debug_pipeline":
+            self.debug_pipeline = val.lower() in ("true", "1", "yes")
         # unknown keys ignored for forward-compatibility
 
 

@@ -142,13 +142,18 @@ def test_build_adjacency_matches_jax_dump_slot():
     u_id = tdbg._lookup(torch.as_tensor(kmers), torch.as_tensor(edges >> 2))
     edges_dead = np.concatenate([edges, np.full(3, SENTINEL, np.int64)])
     u_dead = torch.cat([u_id, torch.full((3,), -1, dtype=torch.int32)])
-    out, in_ = tdbg._build_adjacency(torch.as_tensor(kmers), torch.as_tensor(edges_dead), u_dead)
+    out, in_ = tdbg.build_adjacency_chunked(torch.as_tensor(kmers), torch.as_tensor(edges_dead), u_dead)
     jo, ji = jax_adj(kmers, edges, int(n24), k=23)
     np.testing.assert_array_equal(out.numpy(), np.asarray(jo))
     np.testing.assert_array_equal(in_.numpy(), np.asarray(ji))
 
 
-def test_build_over_window_budget_is_refused():
+def test_build_over_window_budget_goes_in_parts():
+    """Above the window budget the build counts row parts and merges
+    them; the graph is the single pass's (tests/test_torch_chunked.py
+    holds the parted build against mcaat_tpu)."""
     batch = encode_sequences(rand_reads(1, n=10))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdbg.build_dbg_from_reads(batch.codes, batch.lengths, chunk_windows=100, device=CPU)
+    one = tdbg.build_dbg_from_reads(batch.codes, batch.lengths, chunk_windows=0, device=CPU)
+    parted = tdbg.build_dbg_from_reads(batch.codes, batch.lengths, chunk_windows=100, device=CPU)
+    for f in ("kmers", "mult", "out", "in_", "valid"):
+        assert torch.equal(getattr(parted, f), getattr(one, f)), f

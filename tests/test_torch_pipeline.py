@@ -5,8 +5,8 @@
 run by both packages with the big-graph thresholds lowered (so the lazy
 clip, neighbourhood extraction and region-first mapping branches run)
 and with arrays of more than 24 spacers (so the report takes the batched
-LCS path). It must refuse what it has not ported, never fall back to the
-CPU unasked, and never import jax.
+LCS path). It must refuse the multi-device path it has not ported, never
+fall back to the CPU unasked, and never import jax.
 """
 
 import os
@@ -93,21 +93,17 @@ def test_forced_threshold_metagenome_report_matches_jax(tmp_path, monkeypatch):
     assert lcs_cuda.LAUNCHES == launches  # ... on its plain CPU version
 
 
-@pytest.mark.parametrize("flag", ["--resume", "--debug-pipeline"])
-def test_cli_refuses_unported_flags(flag, tmp_path, monkeypatch):
-    from mcaat_tpu_torch.cli import main
-
-    monkeypatch.setenv("MCAAT_TORCH_DEVICE", "cpu")
-    argv = ["--input-files", os.path.join(DATA, "golden_reads.fq"),
-            "--output-folder", str(tmp_path / "out"), flag]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv)
-
-
-def test_run_pipeline_refuses_checkpoints(tmp_path):
-    s = Settings(input_files=os.path.join(DATA, "golden_reads.fq"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipeline.run_pipeline(s, verbose=False, checkpoint_dir=str(tmp_path), device="cpu")
+@pytest.mark.parametrize("mesh,count,refused", [("auto", 2, True), ("off", 2, False), ("auto", 1, False)])
+def test_mesh_auto_refuses_more_than_one_card(mesh, count, refused, monkeypatch):
+    """The one refusal left: more than one visible card with --mesh auto
+    (the multi-device path is not ported yet)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    check = lambda: tpipeline._check_single_device(Settings(mesh=mesh), torch.device("cuda"))
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the parallel/ path"):
+            check()
+    else:
+        check()
 
 
 def test_device_is_explicit(monkeypatch):
