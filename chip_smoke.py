@@ -8,20 +8,29 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the hand-written LCS kernel (``mcaat_tpu_torch/csrc/lcs.cu``);
-3. the kernel against its plain torch version on the card: exact
-   equality of LCS and bitwise equality of the ratio over batch sizes
-   1 ... 1M, every length pair in [0, 64]^2, identical and empty strings;
-   times of both at 1M pairs;
+2. build the hand-written kernels (``mcaat_tpu_torch/csrc/*.cu``: the
+   per-pair LCS kernel and the fused ``partial_ratio`` kernel) into one
+   library, with the registers and spills of each;
+3. each kernel against its plain torch version on the card. The per-pair
+   kernel: exact equality of LCS and bitwise equality of the ratio over
+   batch sizes 1 ... 1M, every length pair in [0, 64]^2, identical and
+   empty strings; times of both at 1M pairs. The fused kernel: bitwise
+   equality with its plain version and with the expanded route (every
+   window cut out on the host and scored by the per-pair kernel) over
+   every length pair of {0, 1, 2, 31, 32, 33, 63, 64}^2 with planted
+   substrings, tables of 1, 2 and 64 strings, and 1 ... 4097 pairs;
 4. the four golden fixtures of ``tests/data`` through the port on the
    card: byte-identical ``CRISPR_Arrays.txt``;
 5. a planted metagenome (20 arrays of 30 spacers in a 10 Mbp background,
    about 0.8M reads; more than 2M graph nodes, so the neighbourhood
    extraction, lazy clip and region condensation branches run) through
    the CLI entry point: every array reported, at least 98% of the
-   spacers recovered, the LCS kernel launched on that path; then the
-   kernel and its plain version timed again on the inputs the path gave
-   it;
+   spacers recovered, both kernels launched on that path, and the
+   seconds of the report stage's parts;
+6. both kernels against their plain versions on the inputs the path gave
+   them, and timed on the largest system's: each kernel, its plain
+   version, and the wall time of ``partial_ratio_pairs`` beside that of
+   the expanded route on the same strings;
 7. the chunked build at full width: a 40 Mbp planted metagenome (3.2M
    reads, about 495M windows) built in one pass and in at least 4 row
    parts with a host spill and a chunked adjacency; every table and both
@@ -39,14 +48,14 @@ Phases (any failure exits non-zero):
     phase 5 the run writes all four, its histogram equals that of a
     separate build of that input, and each stage's seconds are printed.
 
-Each path after phase 6 reads its own LCS launch count (zeroed just
-before it) and fails when it is 0; the kernel's inputs on phases 8 and
-10 are held against the plain version too.
+Each path after phase 6 reads its own launch counts of both kernels
+(zeroed just before it) and fails when either is 0; the kernels' inputs
+on phases 8 and 10 are held against the plain versions too.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists the kernels with their launch counts, errors
-and times. It imports nothing of JAX.
+the line before it lists the kernels with their launch counts, errors,
+times and bounds. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -109,10 +118,41 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def same_bits(what: str, got, want) -> float:
+    """Require two float32 tensors to be equal bit for bit; their largest
+    absolute difference, which is then 0."""
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum()) if got.shape == want.shape else -1
+        fail(f"{what} differs bitwise on {bad}/{got.numel()} pairs")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 50) -> float:
+    """Device milliseconds of one ``fn()``: ``launches`` calls captured in
+    a CUDA graph and replayed, so the host's time to enqueue a launch
+    (tens of microseconds through the Python wrapper, more than a small
+    kernel runs) is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, replays) / launches
+
+
 def compare(kernel, plain, inputs) -> float:
-    """Run kernel and plain version on the same inputs; require exact
-    equality (LCS as integers, ratio bit for bit). Returns the largest
-    absolute difference, which must be 0."""
+    """Run the per-pair kernel and its plain version on the same inputs;
+    require exact equality (LCS as integers, ratio bit for bit). Returns
+    the largest absolute difference, which must be 0."""
     import torch
 
     l1, r1 = kernel(*inputs)
@@ -121,14 +161,63 @@ def compare(kernel, plain, inputs) -> float:
     if not torch.equal(l1, l2):
         bad = int((l1 != l2).sum())
         fail(f"LCS differs from the plain version on {bad}/{l1.numel()} pairs")
-    if not torch.equal(r1.view(torch.int32), r2.view(torch.int32)):
-        bad = int((r1.view(torch.int32) != r2.view(torch.int32)).sum())
-        fail(f"ratio differs bitwise from the plain version on {bad}/{r1.numel()} pairs")
-    err = max(
-        float((l1 - l2).abs().max()) if l1.numel() else 0.0,
-        float((r1 - r2).abs().max()) if r1.numel() else 0.0,
-    )
-    return err
+    err = same_bits("the ratio against the plain version", r1, r2)
+    return max(err, float((l1 - l2).abs().max()) if l1.numel() else 0.0)
+
+
+def compare_table(kernel, plain, inputs) -> float:
+    """The same for the fused partial_ratio kernel and its plain version
+    on ``(codes, lengths, s_idx, l_idx)``."""
+    import torch
+
+    got, want = kernel(*inputs), plain(*inputs)
+    torch.cuda.synchronize()
+    return same_bits("partial_ratio against the plain version", got, want)
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, which counts a
+# fused multiply-add as two, so 33.5e12 instructions a second. The integer
+# recurrences here are counted in 32-bit integer operations against that
+# rate (the data sheet gives none for integers, and theirs is no higher).
+PEAK_BYTES_S = 3.35e12
+PEAK_INT_OPS_S = 33.5e12
+STEP_OPS = 20  # one step of the recurrence: about 10 operations on 64 bits
+MASK_OPS = 8  # building the four match masks, per base of the row string
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_INT_OPS_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lcs_ratio_bound(inputs) -> tuple[float, str]:
+    """Bound of the per-pair kernel on these inputs: both code rows and
+    lengths read once and both outputs written once (144 bytes a pair);
+    one recurrence step per base of b and the masks of a."""
+    _a, la, _b, lb = inputs
+    B = int(la.numel())
+    return bound(144 * B, STEP_OPS * int(lb.sum()) + MASK_OPS * int(la.sum()))
+
+
+def partial_ratio_bound(inputs) -> tuple[float, str]:
+    """Bound of the fused kernel on these inputs: the table, both index
+    vectors and the output once; one recurrence step per base of every
+    non-empty window of every pair (what this data needs), and the masks
+    of each pair's short string."""
+    import torch
+
+    codes, lengths, s_idx, l_idx = inputs
+    n, P = int(codes.shape[0]), int(s_idx.numel())
+    ls = lengths[s_idx.long()].long()
+    ll = lengths[l_idx.long()].long()
+    w = torch.arange(127, device=codes.device)[None, :]
+    start = w - (ls[:, None] - 1)
+    lw = torch.minimum(ll[:, None], start + ls[:, None]) - torch.clamp(start, min=0)
+    live = (w < (ls - 1 + torch.clamp(ll, min=1))[:, None]) & (ls[:, None] > 0)
+    steps = int(torch.clamp(lw, min=0)[live].sum())
+    return bound(68 * n + 12 * P, STEP_OPS * steps + MASK_OPS * int(ls.sum()))
 
 
 def random_pairs(rng, B: int, device):
@@ -182,26 +271,42 @@ def recovery(meta, report: str):
     return arrays, spacers, found
 
 
-@contextlib.contextmanager
-def lcs_run(lcs_cuda, seen: list | None = None):
-    """Zero the LCS launch count for one path and read it after; with
-    ``seen``, record the kernel's inputs on that path (the count stays
-    the wrapper's own). Yields a dict whose ``launches`` is set on exit."""
-    out = {}
-    launch = lcs_cuda.lcs_ratio_cuda
+KERNELS = {"lcs_ratio": "lcs_ratio_cuda", "partial_ratio": "partial_ratio_cuda"}
 
-    def recording(*args):
-        seen.append([t.clone() for t in args])
-        return launch(*args)
+
+@contextlib.contextmanager
+def lcs_run(lcs_cuda, seen: dict | None = None):
+    """Zero the launch counts of both kernels for one path and read them
+    after; with ``seen``, record each kernel's inputs on that path under
+    its name (the counts stay the wrappers' own). Yields a dict whose
+    ``launches`` (name -> count) is set on exit."""
+    out = {}
+    wrappers = {name: getattr(lcs_cuda, fn) for name, fn in KERNELS.items()}
+
+    def recording(name):
+        def run(*args):
+            seen.setdefault(name, []).append([t.clone() for t in args])
+            return wrappers[name](*args)
+
+        return run
 
     if seen is not None:
-        lcs_cuda.lcs_ratio_cuda = recording
-    lcs_cuda.LAUNCHES = 0
+        for name, fn in KERNELS.items():
+            setattr(lcs_cuda, fn, recording(name))
+    lcs_cuda.reset_launch_counts()
     try:
         yield out
     finally:
-        out["launches"] = lcs_cuda.LAUNCHES
-        lcs_cuda.lcs_ratio_cuda = launch
+        out["launches"] = lcs_cuda.launch_counts()
+        for name, fn in KERNELS.items():
+            setattr(lcs_cuda, fn, wrappers[name])
+
+
+def need_launches(path: str, launches: dict) -> None:
+    """Fail when a kernel was never launched on ``path``."""
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"{path} never launched the {name} kernel ({launches})")
 
 
 @contextlib.contextmanager
@@ -261,6 +366,7 @@ def main() -> int:
     try:
         import mcaat_tpu_torch  # noqa: F401
         from synthetic import make_metagenome, write_fastq
+        from torch_fuzz_windows import edge_pairs, expanded_partial_ratio, rand_dna
     except ImportError as e:
         fail(f"the repository is not beside chip_smoke.py ({e})")
     os.environ["MCAAT_TORCH_DEVICE"] = "cuda"
@@ -271,7 +377,8 @@ def main() -> int:
 
     import mcaat_tpu_torch.pipeline as tpipeline
     from mcaat_tpu_torch.report import lcs_cuda
-    from mcaat_tpu_torch.report.batched_fuzz import lcs_ratio_plain
+    from mcaat_tpu_torch.report import batched_fuzz as tfuzz
+    from mcaat_tpu_torch.report.batched_fuzz import lcs_ratio_plain, partial_ratio_table_plain
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -282,18 +389,50 @@ def main() -> int:
     def p1():
         print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
 
-    @phase("2 build the LCS kernel")
+    @phase("2 build the LCS and partial_ratio kernels")
     def p2():
         lcs_cuda.build(verbose_ptxas=True)
         info = lcs_cuda.BUILD_INFO
         print(f"nvcc: {info['seconds']:.2f}s -> {os.path.relpath(info['path'], ROOT)}")
         for line in info["output"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {line.strip()}")
+        for name in KERNELS:
+            if f"{name}_kernel" not in info["output"]:
+                fail(f"the build's report names no {name}_kernel")
 
     stats = {"max_abs_err": 0.0}
+    pstats = {"max_abs_err": 0.0}
 
-    @phase("3 LCS kernel vs plain torch on the card")
+    def kernel_ratio(*arrays):
+        """Lane ratios of the expanded route: upload, per-pair kernel, download."""
+        return lcs_cuda.lcs_ratio_cuda(
+            *(torch.as_tensor(x, device=device) for x in arrays)
+        )[1].cpu().numpy()
+
+    def check_partial(name: str, shorts, longs, expanded: bool = True):
+        """``partial_ratio_pairs`` on the card (the fused kernel) against
+        the plain version on the kernel's own inputs and, with
+        ``expanded``, against the expanded route through the per-pair
+        kernel: all bit for bit."""
+        seen: dict = {}
+        with lcs_run(lcs_cuda, seen) as run:
+            got = tfuzz.partial_ratio_pairs(shorts, longs, device)
+        if run["launches"] != {"lcs_ratio": 0, "partial_ratio": 1}:
+            fail(f"{name}: partial_ratio_pairs launched {run['launches']}")
+        err = compare_table(lcs_cuda.partial_ratio_cuda, partial_ratio_table_plain,
+                            seen["partial_ratio"][0])
+        if expanded:
+            old = expanded_partial_ratio(shorts, longs, kernel_ratio)
+            err = max(err, same_bits(f"{name}: partial_ratio against the expanded route",
+                                     torch.as_tensor(got), torch.as_tensor(old)))
+        pstats["max_abs_err"] = max(pstats["max_abs_err"], err)
+        n = seen["partial_ratio"][0][0].shape[0]
+        print(f"  partial_ratio {name}: {len(shorts)} pairs over {n} strings equal "
+              f"(max abs err {err})")
+        return got
+
+    @phase("3 both kernels vs plain torch on the card")
     def p3():
         rng = np.random.default_rng(0)
         cases = [("length grid 65x65", length_grid(rng, device))]
@@ -317,10 +456,41 @@ def main() -> int:
         big = cases[-1][1]
         stats["ms_1m"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 20)
         stats["plain_ms_1m"] = cuda_ms(lambda: lcs_ratio_plain(*big), 5)
+        stats["bound_ms_1m"], by = lcs_ratio_bound(big)
         print(
             f"  1,048,576 pairs: kernel {stats['ms_1m']:.4f} ms, plain "
-            f"{stats['plain_ms_1m']:.4f} ms ({card})"
+            f"{stats['plain_ms_1m']:.4f} ms, bound {stats['bound_ms_1m']:.4f} ms by {by} ({card})"
         )
+        # the fused kernel
+        shorts, longs = edge_pairs(rng)
+        got = check_partial("edge lengths, both orders, planted", shorts, longs)
+        for a, b, r in zip(shorts, longs, got):
+            if a and a in b and r != 100.0:
+                fail(f"planted substring scored {r}, not 100")
+        for n in (1, 2, 64):
+            pool = [rand_dna(rng, int(rng.integers(0, 65))) for _ in range(n)]
+            ii, jj = np.arange(300) % n, rng.integers(0, n, 300)
+            check_partial(f"table of {n}", [pool[i] for i in ii], [pool[j] for j in jj])
+        pool = [rand_dna(rng, int(rng.integers(20, 46))) for _ in range(48)]
+        for P in (1, 31, 32, 33, 4097):
+            ii, jj = rng.integers(0, 48, P), rng.integers(0, 48, P)
+            check_partial(f"P={P}", [pool[i] for i in ii], [pool[j] for j in jj])
+        # any row against any row, whichever is longer, and pairs the
+        # kernel must refuse: an index outside the table comes back as NaN
+        codes = torch.as_tensor(rng.integers(0, 4, (64, 64), dtype=np.uint8), device=device)
+        lengths = torch.as_tensor(rng.integers(0, 65, 64).astype(np.int32), device=device)
+        s_idx = torch.as_tensor(rng.integers(0, 64, 5000).astype(np.int32), device=device)
+        l_idx = torch.as_tensor(rng.integers(0, 64, 5000).astype(np.int32), device=device)
+        err = compare_table(lcs_cuda.partial_ratio_cuda, partial_ratio_table_plain,
+                            [codes, lengths, s_idx, l_idx])
+        pstats["max_abs_err"] = max(pstats["max_abs_err"], err)
+        s_idx[7], l_idx[11] = 64, -1
+        out = lcs_cuda.partial_ratio_cuda(codes, lengths, s_idx, l_idx)
+        nan = torch.isnan(out).nonzero().flatten().tolist()
+        if nan != [7, 11]:
+            fail(f"out-of-range pairs 7 and 11 should be NaN, got NaN at {nan}")
+        print(f"  partial_ratio any row against any row: 5000 pairs equal (max abs err {err}); "
+              f"out-of-range indices refused")
 
     @phase("4 golden fixtures through the port on the card")
     def p4():
@@ -363,14 +533,38 @@ def main() -> int:
         n_reads = len(meta["reads"])
         print(f"  generated {n_reads} reads in {time.perf_counter() - t0:.1f}s")
 
-        # record the kernel's main-path inputs (the count stays the
-        # wrapper's own)
-        seen: list = []
-        with lcs_run(lcs_cuda, seen) as lcs:
-            result, _text, wall = quiet_cli(run_cli, [
-                "--input-files", fq, "--output-folder", os.path.join(tmp, "out"),
-                "--mesh", "off",
-            ], "cli.log")
+        # record the kernels' main-path inputs (the counts stay the
+        # wrappers' own), the strings of every partial_ratio_pairs call and
+        # the seconds of the report stage's parts
+        from mcaat_tpu_torch import native
+        from mcaat_tpu_torch.report.analyzer import CRISPRAnalyzer
+
+        seen: dict = {}
+        strings: list = []
+        parts: dict = {}
+        pairs_fn = tfuzz.partial_ratio_pairs
+
+        def pairs_spy(shorts, longs, dev):
+            strings.append((list(shorts), list(longs)))
+            return pairs_fn(shorts, longs, dev)
+
+        tfuzz.partial_ratio_pairs = pairs_spy
+        try:
+            with contextlib.ExitStack() as stack:
+                for name in ("find_common_prefix_kmers", "find_common_suffix_kmers",
+                             "trim_kmers_from_sequences", "filter_substring_spacers",
+                             "validate_spacer_diversity"):
+                    stack.enter_context(counting(CRISPRAnalyzer, name, parts))
+                stack.enter_context(counting(native, "umap_order", parts))
+                stack.enter_context(counting(tfuzz, "partial_ratio_pairs", parts))
+                stack.enter_context(counting(tfuzz, "pairwise_ratio_matrix", parts))
+                lcs = stack.enter_context(lcs_run(lcs_cuda, seen))
+                result, _text, wall = quiet_cli(run_cli, [
+                    "--input-files", fq, "--output-folder", os.path.join(tmp, "out"),
+                    "--mesh", "off",
+                ], "cli.log")
+        finally:
+            tfuzz.partial_ratio_pairs = pairs_fn
         launches = lcs["launches"]
         print("  CLI console output: build/chip_smoke/cli.log")
         # the profiler resets the peak at every stage boundary: the run's
@@ -387,33 +581,108 @@ def main() -> int:
         )
         print(
             f"  arrays reported {arrays}/{len(meta['arrays'])}, spacers "
-            f"recovered {found}/{len(spacers)}, LCS launches {launches} "
-            f"(batch sizes {[int(x[0].shape[0]) for x in seen]})"
+            f"recovered {found}/{len(spacers)}, launches {launches}"
         )
+        print(
+            f"  lcs_ratio batch sizes {[int(x[0].shape[0]) for x in seen.get('lcs_ratio', [])]}; "
+            f"partial_ratio (strings, pairs) "
+            f"{[(int(x[0].shape[0]), int(x[2].shape[0])) for x in seen.get('partial_ratio', [])]}"
+        )
+        report_s = next(s.seconds for s in result.profile.stages if s.name == "report")
+        print(f"  report stage {report_s:.3f}s, of which (calls, seconds; nested calls "
+              f"count in their callers too) ({card}):")
+        for name in [k for k in parts if not k.endswith("_s")]:
+            print(f"    {name}: {parts[name]} calls, {parts[name + '_s']:.4f}s")
         if nodes < 2_000_000:
             fail(f"only {nodes} graph nodes; the smoke needs at least 2M")
         if arrays != len(meta["arrays"]):
             fail(f"{len(meta['arrays']) - arrays} planted arrays not reported")
         if found < 0.98 * len(spacers):
             fail(f"only {found}/{len(spacers)} planted spacers recovered")
-        if launches == 0:
-            fail("the main path never launched the LCS kernel")
-        main_path.update(launches=launches, seen=seen, fq=fq)
+        need_launches("the main path", launches)
+        main_path.update(launches=launches, seen=seen, fq=fq, strings=strings,
+                         report_s=report_s, wall=wall)
         scratch.append(tmp)
 
-    @phase("6 LCS kernel vs plain torch on the main path's inputs")
-    def p6():
-        seen = main_path["seen"]
-        for inputs in seen:
+    def hold_recorded(seen: dict) -> None:
+        """Both kernels against their plain versions on a path's recorded
+        inputs."""
+        for inputs in seen.get("lcs_ratio", []):
             err = compare(lcs_cuda.lcs_ratio_cuda, lcs_ratio_plain, inputs)
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
-        big = max(seen, key=lambda x: x[0].shape[0])
+        for inputs in seen.get("partial_ratio", []):
+            err = compare_table(lcs_cuda.partial_ratio_cuda, partial_ratio_table_plain, inputs)
+            pstats["max_abs_err"] = max(pstats["max_abs_err"], err)
+
+    @phase("6 both kernels vs plain torch on the main path's inputs")
+    def p6():
+        seen = main_path["seen"]
+        hold_recorded(seen)
+        big = max(seen["lcs_ratio"], key=lambda x: x[0].shape[0])
         stats["batch"] = int(big[0].shape[0])
-        stats["ms"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 50)
+        stats["ms"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big))
+        stats["call_ms"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 200)
         stats["plain_ms"] = cuda_ms(lambda: lcs_ratio_plain(*big), 10)
+        stats["bound_ms"], stats["bound_by"] = lcs_ratio_bound(big)
         print(
-            f"  {len(seen)} main-path batches equal; largest B={stats['batch']}: "
-            f"kernel {stats['ms']:.4f} ms, plain {stats['plain_ms']:.4f} ms ({card})"
+            f"  {len(seen['lcs_ratio'])} main-path lcs_ratio batches equal; largest "
+            f"B={stats['batch']}: kernel {stats['ms']:.5f} ms on the card ({stats['call_ms']:.4f} ms a "
+            f"call from Python), plain {stats['plain_ms']:.4f} ms, "
+            f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']} ({card})"
+        )
+        pbig = max(seen["partial_ratio"], key=lambda x: x[2].shape[0])
+        pstats["batch"] = int(pbig[2].shape[0])
+        pstats["strings"] = int(pbig[0].shape[0])
+        pstats["ms"] = graph_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig))
+        pstats["call_ms"] = cuda_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig), 200)
+        pstats["plain_ms"] = cuda_ms(lambda: partial_ratio_table_plain(*pbig), 10)
+        pstats["bound_ms"], pstats["bound_by"] = partial_ratio_bound(pbig)
+        print(
+            f"  {len(seen['partial_ratio'])} main-path partial_ratio tables equal; largest "
+            f"{pstats['strings']} strings, P={pstats['batch']}: kernel {pstats['ms']:.5f} ms on the "
+            f"card ({pstats['call_ms']:.4f} ms a call from Python), "
+            f"plain {pstats['plain_ms']:.4f} ms, bound {pstats['bound_ms']:.6f} ms by "
+            f"{pstats['bound_by']} ({card})"
+        )
+        # the largest system's strings: partial_ratio_pairs end to end beside
+        # the expanded route (host window expansion and per-string encoding,
+        # upload, per-pair kernel, host reduction), in turns, best of each
+        shorts, longs = max(main_path["strings"], key=lambda x: len(x[0]))
+        lanes: dict = {}
+        launch = lcs_cuda.lcs_ratio_cuda
+
+        def keep_lanes(*args):
+            lanes["inputs"] = [t.clone() for t in args]
+            return launch(*args)
+
+        lcs_cuda.lcs_ratio_cuda = keep_lanes
+        try:
+            old = expanded_partial_ratio(shorts, longs, kernel_ratio)
+        finally:
+            lcs_cuda.lcs_ratio_cuda = launch
+        new = tfuzz.partial_ratio_pairs(shorts, longs, device)
+        same_bits("the main path's largest system against the expanded route",
+                  torch.as_tensor(new), torch.as_tensor(old))
+        walls = {"new": [], "old": []}
+        for which in ("old", "new", "new", "old", "old", "new"):
+            t0 = time.perf_counter()
+            if which == "new":
+                tfuzz.partial_ratio_pairs(shorts, longs, device)
+            else:
+                expanded_partial_ratio(shorts, longs, kernel_ratio)
+            walls[which].append(time.perf_counter() - t0)
+        old_in = lanes["inputs"]
+        pstats["wall_ms"] = 1e3 * min(walls["new"])
+        pstats["expanded_wall_ms"] = 1e3 * min(walls["old"])
+        pstats["expanded_lanes"] = int(old_in[0].shape[0])
+        pstats["expanded_kernel_ms"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*old_in))
+        pstats["expanded_kernel_bound_ms"], by = lcs_ratio_bound(old_in)
+        print(
+            f"  largest system, {len(shorts)} pairs: partial_ratio_pairs "
+            f"{pstats['wall_ms']:.3f} ms wall; the expanded route {pstats['expanded_wall_ms']:.3f} ms "
+            f"wall over {pstats['expanded_lanes']} lanes (its per-pair kernel "
+            f"{pstats['expanded_kernel_ms']:.5f} ms on the card, bound "
+            f"{pstats['expanded_kernel_bound_ms']:.6f} ms by {by}); equal bit for bit ({card})"
         )
 
     big: dict = {}
@@ -507,7 +776,7 @@ def main() -> int:
         runs = {}
         for name, extra in (("parted", ["--ram", f"{ram:.3f}G"]), ("single", [])):
             counts: dict = {}
-            seen: list = []
+            seen: dict = {}
             with counting(kcount, "_count_edge_part", counts), \
                     lcs_run(lcs_cuda, seen if name == "parted" else None) as lcs:
                 result, _text, wall = quiet_cli(run_cli, [
@@ -520,22 +789,19 @@ def main() -> int:
             print(
                 f"  {name}: {counts['_count_edge_part']} part(s), wall {wall:.2f}s, "
                 f"{big['n_reads'] / wall:.0f} reads/s, arrays {arrays}/{len(meta['arrays'])}, "
-                f"spacers {found}/{len(spacers)}, LCS launches {lcs['launches']} ({card})"
+                f"spacers {found}/{len(spacers)}, launches {lcs['launches']} ({card})"
             )
             print(result.profile.report())
             if arrays != len(meta["arrays"]) or found < 0.98 * len(spacers):
                 fail(f"{name}: {arrays} arrays, {found}/{len(spacers)} spacers")
+            need_launches(f"the {name} CLI run", lcs["launches"])
             if name == "parted":
-                for inputs in seen:
-                    err = compare(lcs_cuda.lcs_ratio_cuda, lcs_ratio_plain, inputs)
-                    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                hold_recorded(seen)
         if runs["parted"][1] < 2 or runs["single"][1] != 1:
             fail(f"--ram {ram:.3f}G gave {runs['parted'][1]} parts, no --ram {runs['single'][1]}")
-        if runs["parted"][2] == 0:
-            fail("the parted CLI run never launched the LCS kernel")
         if runs["parted"][0] != runs["single"][0]:
             fail("the parted CLI run's CRISPR_Arrays.txt differs from the single pass's")
-        print("  CRISPR_Arrays.txt byte-identical; the parted run's LCS inputs equal on the plain version")
+        print("  CRISPR_Arrays.txt byte-identical; the parted run's kernel inputs equal on the plain versions")
         main_path["launches_parted_cli"] = runs["parted"][2]
         big["wall"] = {k: v[3] for k, v in runs.items()}
 
@@ -573,7 +839,7 @@ def main() -> int:
             print(
                 f"  run {i + 1}: wall {wall:.2f}s; graph saves {counts['save_graph']} in "
                 f"{counts['save_graph_s']:.2f}s, loads {counts['load_graph']} in "
-                f"{counts['load_graph_s']:.2f}s; loaded lines {len(lines)}; LCS launches "
+                f"{counts['load_graph_s']:.2f}s; loaded lines {len(lines)}; launches "
                 f"{lcs['launches']}; artifacts {files} ({card})"
             )
             want = {0: 0, 1: 3, 2: 1}[i]
@@ -585,8 +851,8 @@ def main() -> int:
         print(f"  artifact bytes {sizes}")
         if reports[1] != reports[0] or reports[2] != reports[0]:
             fail("a resumed run's CRISPR_Arrays.txt differs from the first run's")
-        if min(launches) == 0:
-            fail(f"a resume run never launched the LCS kernel ({launches})")
+        for i, counts in enumerate(launches):
+            need_launches(f"resume run {i + 1}", counts)
         print("  the full and the partial resume are byte-identical")
         main_path["launches_resume"] = launches
 
@@ -616,14 +882,14 @@ def main() -> int:
                     if got[f] != want[f]:
                         fail(f"debug {name}: {f} differs from tests/torch_data/debug/{name}")
                 print(f"  {name}: the four outputs equal the JAX-written files")
-        if lcs["launches"] == 0:
-            fail("the debug runs never launched the LCS kernel")
+        need_launches("the debug runs", lcs["launches"])
         # planted-20x30, the input of phase 5
         out = os.path.join(tmp, "planted_20x30")
-        seen: list = []
+        seen: dict = {}
         with lcs_run(lcs_cuda, seen) as lcs20:
             r, _text, wall = debug_cli(main_path["fq"], out, "cli_debug_planted_20x30.log")
-        print(f"  planted-20x30: wall {wall:.2f}s, LCS launches {lcs20['launches']} ({card})")
+        print(f"  planted-20x30: wall {wall:.2f}s, launches {lcs20['launches']} ({card})")
+        need_launches("the planted debug run", lcs20["launches"])
         print(r.profile.report())
         for f in dinputs.OUTPUTS:
             if not os.path.exists(os.path.join(out, f)):
@@ -636,11 +902,11 @@ def main() -> int:
         hist = "".join(f"Multiplicity {m}: {c} nodes\n" for m, c in histogram)
         if open(os.path.join(out, "node_multiplicities.txt")).read() != hist:
             fail("the debug run's histogram differs from that of phase 5's graph")
-        for inputs in seen:
-            err = compare(lcs_cuda.lcs_ratio_cuda, lcs_ratio_plain, inputs)
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        hold_recorded(seen)
         print(f"  histogram equal to phase 5's graph's ({len(histogram)} values)")
-        main_path["launches_debug"] = lcs["launches"] + lcs20["launches"]
+        main_path["launches_debug"] = {
+            k: lcs["launches"][k] + lcs20["launches"][k] for k in KERNELS
+        }
 
     scratch: list = []
     try:
@@ -658,25 +924,56 @@ def main() -> int:
         for d in scratch:
             shutil.rmtree(d, ignore_errors=True)
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "lcs_ratio",
-        "route": "cuda",
-        "source": "mcaat_tpu_torch/csrc/lcs.cu",
-        "replaces": "mcaat_tpu/report/pallas_dp.py:53",
-        "launches": main_path["launches"],
-        "max_abs_err": stats["max_abs_err"],
-        "ms": stats["ms"],
-        "plain_ms": stats["plain_ms"],
-        "batch": stats["batch"],
-        "ms_1m": stats["ms_1m"],
-        "plain_ms_1m": stats["plain_ms_1m"],
-        "launches_on_paths": {
-            "5 planted CLI": main_path["launches"],
-            "8 parted CLI": main_path["launches_parted_cli"],
-            "9 resume": main_path["launches_resume"],
-            "10 debug": main_path["launches_debug"],
+
+    def on_paths(name: str) -> dict:
+        return {
+            "5 planted CLI": main_path["launches"][name],
+            "8 parted CLI": main_path["launches_parted_cli"][name],
+            "9 resume": [r[name] for r in main_path["launches_resume"]],
+            "10 debug": main_path["launches_debug"][name],
+        }
+
+    # no PyTorch call computes an LCS or a partial_ratio: library_ms is null
+    common = {"route": "cuda", "replaces": "mcaat_tpu/report/pallas_dp.py:53", "library_ms": None}
+    print(json.dumps({"kernels": [
+        {
+            "name": "lcs_ratio",
+            "source": "mcaat_tpu_torch/csrc/lcs.cu",
+            **common,
+            "launches": main_path["launches"]["lcs_ratio"],
+            "max_abs_err": stats["max_abs_err"],
+            "ms": stats["ms"],
+            "call_ms": stats["call_ms"],
+            "plain_ms": stats["plain_ms"],
+            "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"],
+            "batch": stats["batch"],
+            "ms_1m": stats["ms_1m"],
+            "plain_ms_1m": stats["plain_ms_1m"],
+            "bound_ms_1m": stats["bound_ms_1m"],
+            "launches_on_paths": on_paths("lcs_ratio"),
         },
-    }]}))
+        {
+            "name": "partial_ratio",
+            "source": "mcaat_tpu_torch/csrc/partial_ratio.cu",
+            **common,
+            "launches": main_path["launches"]["partial_ratio"],
+            "max_abs_err": pstats["max_abs_err"],
+            "ms": pstats["ms"],
+            "call_ms": pstats["call_ms"],
+            "plain_ms": pstats["plain_ms"],
+            "bound_ms": pstats["bound_ms"],
+            "bound_by": pstats["bound_by"],
+            "batch": pstats["batch"],
+            "strings": pstats["strings"],
+            "wall_ms": pstats["wall_ms"],
+            "expanded_wall_ms": pstats["expanded_wall_ms"],
+            "expanded_lanes": pstats["expanded_lanes"],
+            "expanded_kernel_ms": pstats["expanded_kernel_ms"],
+            "expanded_kernel_bound_ms": pstats["expanded_kernel_bound_ms"],
+            "launches_on_paths": on_paths("partial_ratio"),
+        },
+    ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"]}}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

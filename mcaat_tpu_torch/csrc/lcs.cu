@@ -20,12 +20,13 @@
 //
 // What bounds it on an H100: each pair reads 136 bytes (two 64-byte code
 // rows and two lengths) and writes 8, and does about 10 integer
-// operations per base of b. On the report's main path B is small (about
-// 1e3 pairs for the diversity check of a 30-spacer array, 1e4-1e5 window
-// lanes for partial_ratio), so a launch is latency-bound. At 1M pairs it
-// is memory-bound; each thread reads its rows as four 16-byte vector
-// loads. Coalesced (transposed or packed) code layouts and fusing the
-// partial_ratio window expansion into the kernel are left for later.
+// operations per base of b. On the report's main path it serves the
+// diversity check (pairwise_ratio_matrix: n^2 pairs, 900 for a 30-spacer
+// array), so a launch is latency-bound. At 1M pairs it is memory-bound;
+// each thread reads its rows as four 16-byte vector loads. Coalesced
+// (transposed or packed) code layouts are left for later. partial_ratio
+// has a kernel of its own that expands the alignment windows on the card
+// (partial_ratio.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -6,13 +6,15 @@ and repeats of at most 64 bases, so Hyyrö's bit-parallel LCS fits one
 
 ``ratio``         = 100 * 2*LCS(a,b) / (|a|+|b|)      (indel distance)
 ``partial_ratio`` = max ratio of the shorter string against every
-                    alignment window of the longer; the windows are
-                    expanded on the host into extra batch lanes.
+                    alignment window of the longer; the device expands
+                    the windows from a table of the distinct strings.
 
-:func:`ratio_batch` dispatches on where its tensors live: CUDA tensors
-go to the hand-written kernel (``report/lcs_cuda.py``, ``csrc/lcs.cu``),
-CPU tensors to the plain torch version below (:func:`lcs_ratio_plain`),
-which is also what the kernel is checked against.
+:func:`ratio_batch` and :func:`partial_ratio_table` dispatch on where
+their tensors live: CUDA tensors go to the hand-written kernels
+(``report/lcs_cuda.py``; ``csrc/lcs.cu``, ``csrc/partial_ratio.cu``),
+CPU tensors to the plain torch versions below (:func:`lcs_ratio_plain`,
+:func:`partial_ratio_table_plain`), which are also what the kernels are
+checked against.
 """
 
 from __future__ import annotations
@@ -142,41 +144,99 @@ def pairwise_ratio_matrix(strings: list[str], device) -> np.ndarray:
     return r.cpu().numpy().reshape(n, n)
 
 
+def partial_ratio_table_plain(codes, lengths, s_idx, l_idx) -> torch.Tensor:
+    """Plain torch fuzz::partial_ratio (float32 [P]) of P pairs of rows of
+    a string table, on any device: what the fused CUDA kernel computes.
+
+    Pair ``p`` scores row ``s_idx[p]`` (the bit-parallel row) against
+    every alignment window of row ``l_idx[p]``, clipped edges included:
+    window ``w`` starts at ``w - (ls - 1)``, and empty windows are
+    skipped. An empty ``s`` has the one window "all of ``l``". The windows
+    are laid out as lanes with tensor ops, scored by
+    :func:`lcs_ratio_plain`, and reduced by a segment maximum that starts
+    at 0.
+    """
+    dev = codes.device
+    P = s_idx.shape[0]
+    if P == 0:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
+    si, li = s_idx.to(torch.int64), l_idx.to(torch.int64)
+    ls, ll = lengths[si].to(torch.int64), lengths[li].to(torch.int64)
+    empty = ls == 0
+    w = torch.arange(2 * MAXLEN - 1, device=dev)[None, :]  # at most 127 windows
+    start = torch.where(empty[:, None], 0, w - (ls[:, None] - 1))
+    begin = torch.clamp(start, min=0)
+    end = torch.where(empty[:, None], ll[:, None], torch.minimum(ll[:, None], start + ls[:, None]))
+    n_win = torch.where(empty, 1, ls - 1 + torch.clamp(ll, min=1))
+    live = (w < n_win[:, None]) & ((end > begin) | empty[:, None])
+    owner, col = torch.nonzero(live, as_tuple=True)  # one lane per window
+    b0 = begin[owner, col]
+    lw = (end[owner, col] - b0).to(torch.int32)
+    pos = b0[:, None] + torch.arange(MAXLEN, device=dev)[None, :]
+    b_codes = torch.gather(codes[li[owner]], 1, torch.clamp(pos, max=MAXLEN - 1))
+    _lcs, r = lcs_ratio_plain(codes[si[owner]], lengths[si[owner]], b_codes, lw)
+    out = torch.zeros(P, dtype=torch.float32, device=dev)
+    return out.scatter_reduce(0, owner, r, "amax", include_self=True)
+
+
+def partial_ratio_table(codes, lengths, s_idx, l_idx) -> torch.Tensor:
+    """fuzz::partial_ratio per pair of table rows, float32 [P]: the fused
+    CUDA kernel for tensors on the card, the plain version for tensors on
+    the CPU."""
+    dev = codes.device
+    if dev.type == "cuda":
+        from mcaat_tpu_torch.report.lcs_cuda import partial_ratio_cuda
+
+        return partial_ratio_cuda(codes, lengths, s_idx, l_idx)
+    if dev.type == "cpu":
+        return partial_ratio_table_plain(codes, lengths, s_idx, l_idx)
+    raise ValueError(f"partial_ratio_table: unsupported device {dev}")
+
+
 def partial_ratio_pairs(shorts: list[str], longs: list[str], device) -> np.ndarray:
     """fuzz::partial_ratio per (shorts[i], longs[i]) pair, one batched call.
 
-    Every alignment window (including clipped edges) becomes a lane; the
-    per-pair max is reduced on the host.
+    The distinct strings are encoded once into a table; the device gets
+    the table and one (short, long) row index pair per pair, expands the
+    alignment windows itself and returns one score per pair. Of two
+    strings the shorter is windowed over the longer, and ``shorts[i]``
+    when the lengths tie (equal lengths are not symmetric under
+    windowing). A string of more than 64 bases raises ``ValueError`` on
+    every device: the DP row has 64 bits. (``mcaat_tpu`` cuts such a
+    string, and each of its windows, to 64 bases in silence; no caller
+    passes one.)
     """
     assert len(shorts) == len(longs)
     if not shorts:
         return np.zeros((0,), dtype=np.float32)
-    a_list, b_list, owner = [], [], []
-    for idx, (a, b) in enumerate(zip(shorts, longs)):
-        s, l = (a, b) if len(a) <= len(b) else (b, a)
-        ls, ll = len(s), len(l)
-        if ls == 0:
-            a_list.append(s)
-            b_list.append(l)
-            owner.append(idx)
-            continue
-        for start in range(-(ls - 1), max(ll, 1)):
-            win = l[max(0, start) : max(0, start + ls)]
-            if not win:
-                continue
-            a_list.append(s)
-            b_list.append(win)
-            owner.append(idx)
-    a_c, a_l = encode_batch(a_list)
-    b_c, b_l = encode_batch(b_list)
-
-    def dev(x):
-        return torch.as_tensor(x, device=device)
-
-    r = ratio_batch(dev(a_c), dev(a_l), dev(b_c), dev(b_l)).cpu().numpy()
-    out = np.zeros(len(shorts), dtype=np.float32)
-    for lane, idx in enumerate(owner):
-        if len(shorts[idx]) == 0 and len(longs[idx]) == 0:
-            out[idx] = 100.0
-        out[idx] = max(out[idx], r[lane])
+    rows: dict[str, int] = {}
+    a_idx = np.array([rows.setdefault(s, len(rows)) for s in shorts], dtype=np.int32)
+    b_idx = np.array([rows.setdefault(s, len(rows)) for s in longs], dtype=np.int32)
+    table = list(rows)
+    longest = max(table, key=len)
+    if len(longest) > MAXLEN:
+        raise ValueError(
+            f"partial_ratio_pairs: a string of {len(longest)} bases; the batched "
+            f"score takes at most {MAXLEN}"
+        )
+    codes, lengths = encode_batch(table)
+    swap = lengths[a_idx] > lengths[b_idx]
+    s_idx = np.where(swap, b_idx, a_idx)
+    l_idx = np.where(swap, a_idx, b_idx)
+    # one upload: the table's codes (as int32 words), its lengths and both
+    # index vectors in one buffer, cut into views on the device
+    n, P = len(table), len(shorts)
+    buf = torch.as_tensor(
+        np.concatenate([codes.view(np.int32).reshape(-1), lengths, s_idx, l_idx]),
+        device=device,
+    )
+    words = n * MAXLEN // 4
+    out = partial_ratio_table(
+        buf[:words].view(torch.uint8).view(n, MAXLEN),
+        buf[words : words + n],
+        buf[words + n : words + n + P],
+        buf[words + n + P :],
+    ).cpu().numpy()
+    if np.isnan(out).any():
+        raise RuntimeError("partial_ratio_pairs: the kernel refused a pair's index or length")
     return out

@@ -8,6 +8,11 @@ LCS lengths compare exactly, ratios bit for bit against the JAX float32
 results and within 1e-4 of the host float64 scores (the tolerance of
 ``tests/test_batched_fuzz.py``). Kernel-versus-plain cases need a card
 and carry the ``cuda`` marker.
+
+``partial_ratio``: the port's table route (distinct strings encoded
+once, windows expanded by the device code; on the CPU its plain torch
+version) against ``mcaat_tpu``'s expanded route bit for bit, against a
+direct per-window loop, and within 1e-4 of the host ``partial_ratio``.
 """
 
 import numpy as np
@@ -19,12 +24,14 @@ from mcaat_tpu.report.fuzz import lcs_length, partial_ratio, ratio
 from mcaat_tpu.report.pallas_dp import lcs_batch_pallas, ratio_batch_pallas
 from mcaat_tpu_torch.report import batched_fuzz as tfuzz
 from mcaat_tpu_torch.report import lcs_cuda
+from torch_fuzz_windows import (
+    EDGE_LENGTHS,
+    edge_pairs,
+    expanded_partial_ratio,
+    rand_dna,
+)
 
 CPU = torch.device("cpu")
-
-
-def rand_dna(rng, n):
-    return "".join("ACGT"[i] for i in rng.integers(0, 4, size=n))
 
 
 def _rand_strings(rng, n, lo=0, hi=64):
@@ -141,6 +148,220 @@ def test_analyzer_batched_path_matches_jax(tmp_path):
     assert "Number of Systems: 3" in got
 
 
+def _assert_partial_ratio_parity(shorts, longs):
+    """The port on the CPU equals mcaat_tpu bit for bit and the host score
+    within 1e-4; returns the port's scores. Strings of equal length are
+    the exception both batched routes share: the host scores them with
+    one plain ``ratio``, the batched routes also slide the clipped
+    windows, so there the batched score is at least the host's."""
+    got = tfuzz.partial_ratio_pairs(shorts, longs, CPU)
+    assert got.dtype == np.float32 and got.shape == (len(shorts),)
+    np.testing.assert_array_equal(_bits(got), _bits(jfuzz.partial_ratio_pairs(shorts, longs)))
+    for i, (a, b) in enumerate(zip(shorts, longs)):
+        if len(a) == len(b):
+            assert got[i] >= partial_ratio(a, b) - 1e-4, (a, b)
+        else:
+            assert abs(got[i] - partial_ratio(a, b)) < 1e-4, (a, b)
+    return got
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_partial_ratio_pairs_matches_jax_and_host(seed):
+    """Random pairs in any order of lengths, with strings that repeat
+    across pairs (they share a table row) and near-substrings."""
+    rng = np.random.default_rng(100 + seed)
+    pool = _rand_strings(rng, 14) + ["", "A", "ACGT" * 16]
+    pool += [pool[0][2:], pool[1][:-3] + "T", pool[2][1:-1]]
+    ii = rng.integers(0, len(pool), size=40)
+    jj = rng.integers(0, len(pool), size=40)
+    shorts, longs = [pool[i] for i in ii], [pool[j] for j in jj]
+    got = _assert_partial_ratio_parity(shorts, longs)
+    for k in range(len(shorts)):
+        if shorts[k] and shorts[k] in longs[k]:
+            assert got[k] == 100.0
+
+
+@pytest.mark.parametrize("ls", EDGE_LENGTHS)
+def test_partial_ratio_pairs_edge_lengths(ls):
+    """Every length pair over the word edges (0, 1, 2, 31..33, 63, 64),
+    both argument orders, and a planted substring: clipped windows at
+    both ends, ``ls == ll``, ``ls == 1``, empty strings, a full row."""
+    rng = np.random.default_rng(200 + ls)
+    shorts, longs = edge_pairs(rng, short_lengths=(ls,))
+    got = _assert_partial_ratio_parity(shorts, longs)
+    for k in range(len(shorts)):
+        if shorts[k] in longs[k]:
+            assert got[k] == (100.0 if shorts[k] or not longs[k] else 0.0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 32, 64])
+def test_partial_ratio_tie_rule_both_orders(n):
+    """Equal lengths are not symmetric under windowing: the first argument
+    is the one that is windowed over the second, as in mcaat_tpu."""
+    rng = np.random.default_rng(300 + n)
+    a = [rand_dna(rng, n) for _ in range(12)]
+    b = [rand_dna(rng, n) for _ in range(12)]
+    fwd = _assert_partial_ratio_parity(a, b)
+    rev = _assert_partial_ratio_parity(b, a)
+    both = _assert_partial_ratio_parity(a + b, b + a)  # one table, both orders
+    np.testing.assert_array_equal(_bits(both), _bits(np.concatenate([fwd, rev])))
+
+
+def test_partial_ratio_pairs_encodes_each_distinct_string_once(monkeypatch):
+    rng = np.random.default_rng(8)
+    pool = [rand_dna(rng, 30) for _ in range(5)] + ["ACGTAC"]
+    shorts = [pool[i % 6] for i in range(60)]
+    longs = [pool[(i // 6) % 6] for i in range(60)]
+    seen = {}
+    plain = tfuzz.partial_ratio_table_plain
+
+    def spy(codes, lengths, s_idx, l_idx):
+        seen.update(n=codes.shape[0], pairs=s_idx.shape[0], dtypes=(
+            codes.dtype, lengths.dtype, s_idx.dtype, l_idx.dtype))
+        assert (lengths[s_idx.long()] <= lengths[l_idx.long()]).all()
+        return plain(codes, lengths, s_idx, l_idx)
+
+    monkeypatch.setattr(tfuzz, "partial_ratio_table_plain", spy)
+    before = lcs_cuda.launch_counts()
+    _assert_partial_ratio_parity(shorts, longs)
+    assert lcs_cuda.launch_counts() == before  # CPU tensors: no kernel launch
+    assert seen["n"] == 6 and seen["pairs"] == 60
+    assert seen["dtypes"] == (torch.uint8, torch.int32, torch.int32, torch.int32)
+
+
+def test_partial_ratio_pairs_empty_input():
+    got = tfuzz.partial_ratio_pairs([], [], CPU)
+    assert got.shape == (0,) and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_partial_ratio_table_plain_matches_per_window_loop(seed):
+    """The plain table route against a direct loop over the windows of
+    each pair (host LCS, float32 ratio in the kernel's order) and against
+    the expanded route through the plain per-pair version."""
+    rng = np.random.default_rng(400 + seed)
+    table = _rand_strings(rng, 10) + ["", "G"]
+    codes, lengths = tfuzz.encode_batch(table)
+    # any row against any row: the table route does not need ls <= ll
+    s_idx = rng.integers(0, len(table), size=50).astype(np.int32)
+    l_idx = rng.integers(0, len(table), size=50).astype(np.int32)
+    got = tfuzz.partial_ratio_table_plain(
+        *(torch.as_tensor(x) for x in (codes, lengths, s_idx, l_idx))
+    ).numpy()
+    want = np.zeros(len(s_idx), dtype=np.float32)
+    for p, (si, li) in enumerate(zip(s_idx, l_idx)):
+        s, l = table[si], table[li]
+        if not s:
+            want[p] = 100.0 if not l else 0.0
+            continue
+        for start in range(-(len(s) - 1), max(len(l), 1)):
+            win = l[max(0, start) : max(0, start + len(s))]
+            if win:
+                r = np.float32(200.0) * np.float32(lcs_length(s, win)) / np.float32(len(s) + len(win))
+                want[p] = max(want[p], r)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    ordered = [i for i in range(len(s_idx)) if len(table[s_idx[i]]) <= len(table[l_idx[i]])]
+    shorts = [table[s_idx[i]] for i in ordered]
+    longs = [table[l_idx[i]] for i in ordered]
+
+    def plain_ratio(*arrays):
+        return tfuzz.lcs_ratio_plain(*(torch.as_tensor(x) for x in arrays))[1].numpy()
+
+    np.testing.assert_array_equal(
+        _bits(got[ordered]), _bits(expanded_partial_ratio(shorts, longs, plain_ratio))
+    )
+
+
+@pytest.mark.parametrize("where", ["short", "long", "both"])
+def test_partial_ratio_pairs_refuses_strings_over_64_bases(where):
+    """mcaat_tpu cuts such strings to 64 bases lane by lane; the port's
+    table route raises instead of answering differently in silence."""
+    rng = np.random.default_rng(9)
+    ok, over = rand_dna(rng, 40), rand_dna(rng, 65)
+    shorts = [ok, over if where in ("short", "both") else ok]
+    longs = [ok, over if where in ("long", "both") else ok]
+    with pytest.raises(ValueError, match="65 bases"):
+        tfuzz.partial_ratio_pairs(shorts, longs, CPU)
+    assert tfuzz.partial_ratio_pairs([ok], [rand_dna(rng, 64)], CPU).shape == (1,)
+
+
+@pytest.mark.parametrize("n_spacers", [30, 64])
+def test_filter_substring_spacers_matches_jax(n_spacers, tmp_path):
+    """The greedy near-substring filter on the batched path (more than 24
+    spacers): the same spacers in the same order as mcaat_tpu's."""
+    from mcaat_tpu.report.analyzer import CRISPRAnalyzer as JAnalyzer
+    from mcaat_tpu_torch.report.analyzer import CRISPRAnalyzer as TAnalyzer
+
+    rng = np.random.default_rng(n_spacers)
+    sp = [rand_dna(rng, int(rng.integers(26, 41))) for _ in range(n_spacers - 6)]
+    sp += [sp[0][:-2], sp[1][2:], sp[2][:-1] + "A", sp[3][1:], "A" + sp[4][:-1], sp[5]]
+    order = rng.permutation(len(sp))
+    sp = [sp[i] for i in order]
+    assert len(sp) == n_spacers > TAnalyzer.BATCH_THRESHOLD
+    want = JAnalyzer({}, str(tmp_path / "j.txt")).filter_substring_spacers(sp)
+    got = TAnalyzer({}, str(tmp_path / "t.txt"), device=CPU).filter_substring_spacers(sp)
+    assert got == want
+    assert len(got) < len(set(sp))  # the near-substrings went
+
+
+def _table_inputs(n=3, pairs=5):
+    return [
+        torch.zeros((n, 64), dtype=torch.uint8),
+        torch.full((n,), 20, dtype=torch.int32),
+        torch.zeros(pairs, dtype=torch.int32),
+        torch.ones(pairs, dtype=torch.int32),
+    ]
+
+
+@pytest.mark.parametrize(
+    "arg,bad,match",
+    [
+        (None, None, "CUDA tensors"),
+        (0, torch.zeros((3, 64), dtype=torch.int32), "codes must be"),
+        (0, torch.zeros((3, 32), dtype=torch.uint8), "codes must be"),
+        (1, torch.full((3,), 20, dtype=torch.int64), "lengths must be"),
+        (1, torch.full((4,), 20, dtype=torch.int32), "lengths must be"),
+        (2, torch.zeros(5, dtype=torch.int64), "s_idx must be"),
+        (3, torch.zeros(4, dtype=torch.int32), "l_idx must be"),
+        (3, torch.zeros(10, dtype=torch.int32)[::2], "l_idx must be contiguous"),
+    ],
+)
+def test_partial_ratio_cuda_refuses_what_the_kernel_does_not_take(arg, bad, match):
+    """CPU tensors, a wrong dtype, a wrong shape and a strided view raise;
+    nothing falls back to the plain version."""
+    inputs = _table_inputs()
+    if arg is not None:
+        inputs[arg] = bad
+    before = lcs_cuda.PARTIAL_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        lcs_cuda.partial_ratio_cuda(*inputs)
+    assert lcs_cuda.PARTIAL_LAUNCHES == before
+
+
+def test_partial_ratio_table_takes_plain_version_for_cpu_tensors():
+    inputs = _table_inputs()
+    before = lcs_cuda.launch_counts()
+    r = tfuzz.partial_ratio_table(*inputs)
+    assert lcs_cuda.launch_counts() == before
+    np.testing.assert_array_equal(r.numpy(), np.full(5, 100.0, dtype=np.float32))
+
+
+def test_launch_counts_are_per_kernel(monkeypatch):
+    monkeypatch.setattr(lcs_cuda, "LAUNCHES", 3)
+    monkeypatch.setattr(lcs_cuda, "PARTIAL_LAUNCHES", 2)
+    assert lcs_cuda.launch_counts() == {"lcs_ratio": 3, "partial_ratio": 2}
+    lcs_cuda.reset_launch_counts()
+    assert lcs_cuda.launch_counts() == {"lcs_ratio": 0, "partial_ratio": 0}
+
+
+def test_build_covers_every_kernel_source():
+    import glob
+    import os
+
+    sources = sorted(os.path.basename(p) for p in glob.glob(os.path.join(lcs_cuda.SOURCE_DIR, "*.cu")))
+    assert sources == ["lcs.cu", "partial_ratio.cu"]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -169,3 +390,48 @@ def test_kernel_refuses_misshapen_inputs_on_card():
     lens = torch.zeros(4, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="a_codes"):
         lcs_cuda.lcs_ratio_cuda(codes, lens, codes, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge grid", "tables of 1, 2 and 64", "pair counts"])
+def test_partial_ratio_kernel_matches_plain_and_expanded_route_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the partial_ratio kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    if case == "edge grid":
+        tables = [edge_pairs(rng)]
+    elif case == "tables of 1, 2 and 64":
+        tables = []
+        for n in (1, 2, 64):
+            pool = _rand_strings(rng, n)
+            ii, jj = rng.integers(0, n, size=200), rng.integers(0, n, size=200)
+            tables.append(([pool[i] for i in ii], [pool[j] for j in jj]))
+    else:
+        pool = _rand_strings(rng, 40, lo=20, hi=45)
+        tables = []
+        for P in (1, 31, 32, 33, 4097):
+            ii, jj = rng.integers(0, 40, size=P), rng.integers(0, 40, size=P)
+            tables.append(([pool[i] for i in ii], [pool[j] for j in jj]))
+
+    def kernel_ratio(*arrays):
+        return lcs_cuda.lcs_ratio_cuda(*(torch.as_tensor(x, device=dev) for x in arrays))[1].cpu().numpy()
+
+    for shorts, longs in tables:
+        before = lcs_cuda.PARTIAL_LAUNCHES
+        got = tfuzz.partial_ratio_pairs(shorts, longs, dev)
+        assert lcs_cuda.PARTIAL_LAUNCHES == before + 1
+        np.testing.assert_array_equal(_bits(got), _bits(tfuzz.partial_ratio_pairs(shorts, longs, CPU)))
+        np.testing.assert_array_equal(_bits(got), _bits(expanded_partial_ratio(shorts, longs, kernel_ratio)))
+
+
+@pytest.mark.cuda
+def test_partial_ratio_kernel_marks_out_of_range_pairs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the partial_ratio kernel has no CPU mode")
+    dev = torch.device("cuda")
+    codes, lengths, s_idx, l_idx = (t.to(dev) for t in _table_inputs())
+    s_idx[1] = 3
+    l_idx[2] = -1
+    out = lcs_cuda.partial_ratio_cuda(codes, lengths, s_idx, l_idx).cpu().numpy()
+    assert np.isnan(out[[1, 2]]).all() and (out[[0, 3, 4]] == 100.0).all()
