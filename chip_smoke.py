@@ -48,9 +48,32 @@ Phases (any failure exits non-zero):
     phase 5 the run writes all four, its histogram equals that of a
     separate build of that input, and each stage's seconds are printed.
 
+11. the sharded build at full width: the input of phase 5 built with
+    ``build_sharded_dbg`` on a mesh of 4 shards on the card and with the
+    single-device build; the concatenated k-mers and multiplicities equal
+    and both adjacencies equal after mapping ids; rows per shard, seconds,
+    device peaks and the exchanged bytes per stage printed;
+12. the sharded pipeline through the CLI entry point
+    (``MCAAT_TORCH_SHARDS=4``, ``--mesh auto``): report byte-identical to
+    phase 5's, every array, at least 98% of the spacers, both kernels
+    launched and held against their plain versions, stage seconds; then
+    ``--mesh off``: the same bytes;
+13. sharded ``--resume``: a first run writes ``graph_sharded/``,
+    ``valid_pruned/``, ``cycles.json`` and ``reads.json``, a second loads
+    them all, a third on 2 shards finds the kp mismatch and rebuilds;
+    three reports byte-identical to phase 5's; write and load seconds;
+14. the process-group path: one process, ``nccl``, world size 1 over a
+    ``file://`` store, 4 local shards; ``run_pipeline_multihost`` on a
+    golden fixture and on the input of phase 5 gives the golden report
+    and phase 5's, byte for byte. This shows that the NCCL calls are well
+    formed (types, split sizes), not that two cards talk.
+
 Each path after phase 6 reads its own launch counts of both kernels
 (zeroed just before it) and fails when either is 0; the kernels' inputs
-on phases 8 and 10 are held against the plain versions too.
+on phases 8, 10 and 12 are held against the plain versions too.
+
+``--skip 3,4,7`` leaves phases out while a change is being debugged; such
+a run prints no result lines.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -355,6 +378,11 @@ def quiet_cli(run_cli, argv, log_name: str):
 
 
 def main() -> int:
+    skip: set = set()
+    if len(sys.argv) == 3 and sys.argv[1] == "--skip":
+        skip = {int(x) for x in sys.argv[2].split(",")}
+    elif len(sys.argv) != 1:
+        fail("usage: python3 chip_smoke.py [--skip N,N,...]")
     try:
         import torch
     except ImportError:
@@ -600,8 +628,12 @@ def main() -> int:
         if found < 0.98 * len(spacers):
             fail(f"only {found}/{len(spacers)} planted spacers recovered")
         need_launches("the main path", launches)
+        with open(os.path.join(tmp, "out", "CRISPR_Arrays.txt"), "rb") as fh:
+            report = fh.read()
+        del meta["reads"]
         main_path.update(launches=launches, seen=seen, fq=fq, strings=strings,
-                         report_s=report_s, wall=wall)
+                         report_s=report_s, wall=wall, report=report, meta=meta,
+                         n_reads=n_reads, stages={s.name: s.seconds for s in result.profile.stages})
         scratch.append(tmp)
 
     def hold_recorded(seen: dict) -> None:
@@ -908,21 +940,255 @@ def main() -> int:
             k: lcs["launches"][k] + lcs20["launches"][k] for k in KERNELS
         }
 
+
+    @contextlib.contextmanager
+    def shards(n: int):
+        """``MCAAT_TORCH_SHARDS=n`` for one path: the default mesh then
+        has n shards on the card."""
+        old = os.environ.get("MCAAT_TORCH_SHARDS")
+        os.environ["MCAAT_TORCH_SHARDS"] = str(n)
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["MCAAT_TORCH_SHARDS"]
+            else:
+                os.environ["MCAAT_TORCH_SHARDS"] = old
+
+    def check_planted(path: str, report: bytes, launches: dict) -> None:
+        """A planted-20x30 report: phase 5's bytes, every array, at least
+        98% of the spacers, both kernels launched."""
+        meta = main_path["meta"]
+        arrays, spacers, found = recovery(meta, report.decode())
+        print(f"  {path}: arrays {arrays}/{len(meta['arrays'])}, spacers "
+              f"{found}/{len(spacers)}, launches {launches}")
+        if arrays != len(meta["arrays"]) or found < 0.98 * len(spacers):
+            fail(f"{path}: {arrays} arrays, {found}/{len(spacers)} spacers")
+        if report != main_path["report"]:
+            fail(f"{path}: CRISPR_Arrays.txt differs from phase 5's")
+        need_launches(path, launches)
+
+    def wire_line(snap: dict) -> str:
+        return ", ".join(
+            f"{k} {v['bytes'] / 1e6:.1f} MB in {v['calls']}" for k, v in snap.items()
+        )
+
+    @phase("11 the sharded build at full width, 4 shards on the card vs one device")
+    def p11():
+        from mcaat_tpu_torch.graph import dbg
+        from mcaat_tpu_torch.io.fastq import read_encoded_batch
+        from mcaat_tpu_torch.parallel.sharded import make_pipeline_mesh
+        from mcaat_tpu_torch.parallel.sharded_graph import build_sharded_dbg
+        from mcaat_tpu_torch.utils import wire
+
+        batch = read_encoded_batch(main_path["fq"])
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g = fn()
+            torch.cuda.synchronize()
+            return g, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+        one, s1, peak1 = timed(
+            lambda: dbg.build_dbg_from_reads(batch.codes, batch.lengths, device=device)
+        )
+        mesh = make_pipeline_mesh([device] * 4)
+        wire.reset()
+        sg, s4, peak4 = timed(
+            lambda: build_sharded_dbg(mesh, batch.codes, batch.lengths, add_rc=True)
+        )
+        snap = wire.snapshot()
+        if not torch.equal(torch.cat(sg.kmers), one.kmers):
+            fail("the sharded build's k-mers differ from the single-device build's")
+        if not torch.equal(torch.cat(sg.mult), one.mult):
+            fail("the sharded build's multiplicities differ")
+        offs = torch.as_tensor(
+            np.concatenate([[0], np.cumsum(sg.n_live)]), device=device
+        )
+
+        def compact(adj):  # global id shard*T + local -> rank over all rows
+            a = torch.cat(adj).to(torch.int64)
+            s = torch.clamp(a, min=0) // sg.T
+            return torch.where(a >= 0, a - s * sg.T + offs[s], -1).to(torch.int32)
+
+        for name, mine, ref in (("out", sg.out, one.out), ("in_", sg.in_, one.in_)):
+            if not torch.equal(compact(mine), ref):
+                fail(f"the sharded build's {name}-adjacency differs after mapping ids")
+        print(f"  graph: {sg.n_nodes} nodes, {int((one.out >= 0).sum())} edges; k-mers, "
+              f"multiplicities and both adjacencies equal; rows per shard "
+              f"{sg.n_live.tolist()}, T={sg.T}, {sg.n_parts} part(s)")
+        print(f"  single device: {s1:.2f}s, device peak {peak1 / 2**30:.2f} GiB; 4 shards: "
+              f"{s4:.2f}s, device peak {peak4 / 2**30:.2f} GiB ({card})")
+        print(f"  exchanged: {wire_line(snap)}")
+        if sg.n_nodes != one.size or len(sg.n_live) != 4 or int(sg.n_live.min()) == 0:
+            fail(f"the sharded build has {sg.n_nodes} nodes in {sg.n_live.tolist()}")
+        sharded.update(build_s=s4, build_peak=peak4, single_build_s=s1,
+                       single_build_peak=peak1, wire_build=snap, n_live=sg.n_live.tolist())
+
+    @phase("12 the sharded pipeline through python -m mcaat_tpu_torch, 4 shards on the card")
+    def p12():
+        from mcaat_tpu_torch.cli import run_cli
+        from mcaat_tpu_torch.utils import wire
+
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_sharded_")
+        scratch.append(tmp)
+        with shards(4):
+            for name, mesh_arg in (("sharded", "auto"), ("mesh_off", "off")):
+                seen: dict = {}
+                wire.reset()
+                with lcs_run(lcs_cuda, seen) as lcs:
+                    result, text, wall = quiet_cli(run_cli, [
+                        "--input-files", main_path["fq"], "--output-folder",
+                        os.path.join(tmp, name), "--mesh", mesh_arg,
+                    ], f"cli_{name}.log")
+                snap = wire.snapshot()
+                with open(os.path.join(tmp, name, "CRISPR_Arrays.txt"), "rb") as fh:
+                    report = fh.read()
+                check_planted(f"--mesh {mesh_arg}", report, lcs["launches"])
+                hold_recorded(seen)
+                print(f"  --mesh {mesh_arg}: wall {wall:.2f}s, "
+                      f"{main_path['n_reads'] / wall:.0f} reads/s ({card})")
+                print(result.profile.report())
+                if name == "sharded":
+                    if "Graph built (sharded over" not in text or not snap:
+                        fail("--mesh auto with 4 shards did not take the sharded path")
+                    print(f"  exchanged: {wire_line(snap)}")
+                    sharded.update(
+                        wall=wall, wire=snap, launches=lcs["launches"],
+                        stages={s.name: s.seconds for s in result.profile.stages},
+                        peak=result.profile.peak_device_mb(),
+                    )
+                elif snap:
+                    fail(f"--mesh off exchanged {snap}")
+        print("  both reports byte-identical to phase 5's; the kernels' inputs equal "
+              "on the plain versions")
+
+    @phase("13 sharded --resume: write, load, and a kp mismatch that rebuilds")
+    def p13():
+        from mcaat_tpu_torch import checkpoint as ckpt
+        from mcaat_tpu_torch.cli import run_cli
+
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_sresume_")
+        scratch.append(tmp)
+        out = os.path.join(tmp, "out")
+        argv = ["--input-files", main_path["fq"], "--output-folder", out,
+                "--mesh", "auto", "--resume"]
+        loaded = (
+            "Graph loaded from sharded checkpoint:",
+            "Cycles loaded from checkpoint:",
+            "Reads loaded from checkpoint:",
+        )
+        launches = []
+        for i, (n, want) in enumerate(((4, 0), (4, 3), (2, 0))):
+            counts: dict = {}
+            with shards(n), \
+                    counting(ckpt, "save_sharded_graph", counts, timed=True), \
+                    counting(ckpt, "load_sharded_graph", counts, timed=True), \
+                    counting(ckpt, "save_sharded_valid", counts, timed=True), \
+                    counting(ckpt, "load_sharded_valid", counts, timed=True), \
+                    lcs_run(lcs_cuda) as lcs:
+                _r, text, wall = quiet_cli(run_cli, argv, f"cli_sresume_{i + 1}.log")
+            report_path = os.path.join(out, "CRISPR_Arrays.txt")
+            with open(report_path, "rb") as fh:
+                report = fh.read()
+            os.remove(report_path)
+            check_planted(f"sharded resume run {i + 1} ({n} shards)", report, lcs["launches"])
+            launches.append(lcs["launches"])
+            lines = [x for x in loaded if x in text]
+            files = sorted(os.listdir(os.path.join(out, "graph")))
+            shard_files = sorted(os.listdir(os.path.join(out, "graph", "graph_sharded")))
+            print(
+                f"  run {i + 1}: wall {wall:.2f}s; graph saves "
+                f"{counts['save_sharded_graph']} in {counts['save_sharded_graph_s']:.2f}s, loads "
+                f"{counts['load_sharded_graph']} in {counts['load_sharded_graph_s']:.2f}s; validity "
+                f"saves {counts['save_sharded_valid']} in {counts['save_sharded_valid_s']:.2f}s, "
+                f"loads {counts['load_sharded_valid']} in {counts['load_sharded_valid_s']:.2f}s; "
+                f"loaded lines {len(lines)}; artifacts {files} ({card})"
+            )
+            if len(lines) != want:
+                fail(f"sharded resume run {i + 1} printed {len(lines)} 'loaded' lines, not {want}")
+            if files != ["cycles.json", "graph_sharded", "reads.json", "valid_pruned"]:
+                fail(f"sharded resume run {i + 1} left {files}")
+            if shard_files != ["meta.json"] + [f"shard_{s:04d}.npz" for s in range(n)]:
+                fail(f"sharded resume run {i + 1} left {shard_files} in graph_sharded/")
+            if i == 2 and "does not fit this mesh" not in text:
+                fail("the run on 2 shards did not report the kp mismatch")
+            sharded.setdefault("resume_wall", []).append(wall)
+        size = sum(
+            os.path.getsize(os.path.join(out, "graph", "graph_sharded", f)) for f in shard_files
+        )
+        print(f"  graph_sharded/ holds {size} bytes on 2 shards; the three reports are "
+              f"byte-identical to phase 5's")
+        sharded["launches_resume"] = launches
+
+    @phase("14 the process-group path: one process, nccl, 4 local shards")
+    def p14():
+        import torch.distributed as dist
+
+        from mcaat_tpu_torch.parallel import multihost
+        from mcaat_tpu_torch.settings import Settings
+
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_group_")
+        scratch.append(tmp)
+        calls: dict = {}
+        with shards(4), counting(dist, "all_to_all_single", calls), \
+                counting(dist, "all_gather", calls):
+            multihost.initialize_distributed(
+                f"file://{os.path.join(tmp, 'store')}", 1, 0, device=device, timeout_s=120
+            )
+            try:
+                if dist.get_backend() != "nccl":
+                    fail(f"the process group's backend is {dist.get_backend()}, not nccl")
+                data = os.path.join(ROOT, "tests", "data")
+                s = Settings(input_files=os.path.join(data, "golden_reads.fq"),
+                             output_file=os.path.join(tmp, "golden.txt"))
+                r = multihost.run_pipeline_multihost(s, verbose=False, device=device)
+                with open(os.path.join(data, "golden_CRISPR_Arrays.txt")) as fh:
+                    if r.report_text != fh.read():
+                        fail("the process-group run's golden report differs")
+                print("  golden: byte-identical")
+                s = Settings(input_files=main_path["fq"],
+                             output_file=os.path.join(tmp, "planted.txt"))
+                stats14: dict = {}
+                with lcs_run(lcs_cuda) as lcs:
+                    t0 = time.perf_counter()
+                    r = multihost.run_pipeline_multihost(
+                        s, verbose=False, stats_out=stats14, device=device
+                    )
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                dist.destroy_process_group()
+        with open(os.path.join(tmp, "planted.txt"), "rb") as fh:
+            check_planted("process group", fh.read(), lcs["launches"])
+        print(f"  planted-20x30: wall {wall:.2f}s, mesh {stats14['mesh']}, rows per shard "
+              f"{stats14['live_rows_per_shard']}, build {stats14['build_wall_s']}s ({card})")
+        print(f"  stages {stats14['stages']}")
+        print(f"  exchanged: {wire_line(stats14['wire'])}")
+        print(f"  torch.distributed calls: all_to_all_single {calls['all_to_all_single']}, "
+              f"all_gather {calls['all_gather']}")
+        if calls["all_to_all_single"] == 0 or calls["all_gather"] == 0:
+            fail("the process-group path made no torch.distributed call")
+        print("  this shows that the NCCL calls are well formed (types, split sizes) in a "
+              "group of one process; it does not show two cards talking")
+        sharded.update(launches_group=lcs["launches"], group_wall=wall)
+
     scratch: list = []
+    sharded: dict = {}
+    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14]
     try:
-        p1()
-        p2()
-        p3()
-        p4()
-        p5()
-        p6()
-        p7()
-        p8()
-        p9()
-        p10()
+        for i, run in enumerate(phases, start=1):
+            if i not in skip:
+                run()
     finally:
         for d in scratch:
             shutil.rmtree(d, ignore_errors=True)
+    if skip:
+        print(f"phases {sorted(skip)} skipped: no result lines")
+        return 0
     print(card)
 
     def on_paths(name: str) -> dict:
@@ -931,6 +1197,9 @@ def main() -> int:
             "8 parted CLI": main_path["launches_parted_cli"][name],
             "9 resume": [r[name] for r in main_path["launches_resume"]],
             "10 debug": main_path["launches_debug"][name],
+            "12 sharded CLI": sharded["launches"][name],
+            "13 sharded resume": [r[name] for r in sharded["launches_resume"]],
+            "14 process group": sharded["launches_group"][name],
         }
 
     # no PyTorch call computes an LCS or a partial_ratio: library_ms is null
@@ -973,7 +1242,11 @@ def main() -> int:
             "expanded_kernel_bound_ms": pstats["expanded_kernel_bound_ms"],
             "launches_on_paths": on_paths("partial_ratio"),
         },
-    ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"]}}))
+    ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
+                         "stages_s": main_path["stages"]},
+        "planted_20x30_4_shards": {k: sharded[k] for k in (
+            "wall", "stages", "peak", "wire", "build_s", "build_peak", "single_build_s",
+            "single_build_peak", "wire_build", "n_live", "resume_wall", "group_wall")}}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -12,6 +12,13 @@ without a card it stops with an error). ``--resume`` (or ``resume=true``
 in the settings file) checkpoints every stage into the graph folder and
 keeps it; ``--debug-pipeline`` (or ``debug_pipeline=true``) runs the
 reference's DEBUG-main extension instead of the release pipeline.
+
+With more than one visible card ``--mesh auto`` (the default) keeps the
+graph sharded over all of them. A run over several processes sets
+``MCAAT_COORDINATOR`` (``host:port`` or a ``file://`` path),
+``MCAAT_NUM_PROCESSES`` and ``MCAAT_PROCESS_ID`` for each of them: the
+graph is then sharded over every process's cards and process 0 writes
+the report (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ Optional:
   --settings <path>               Path to a key=value settings file (overridden by CLI args)
   --resume                        Checkpoint each stage into the graph folder, keep it, and skip finished stages on rerun
   --debug-pipeline                Run the debug pipeline (filters, protospacer paths, phage curation, multiplicity histogram)
-  --mesh <auto|off>               auto refuses more than one visible CUDA device (not ported yet); off runs on one
+  --mesh <auto|off>               auto shards the graph over every visible CUDA device; off runs on one
   --help, -h                      Show this help message
 """
 
@@ -179,9 +186,13 @@ def run_cli(argv: list[str] | None = None):
     """Everything ``main`` does; returns the PipelineResult, or None when
     the settings check fails."""
     from mcaat_tpu_torch import resolve_device
+    from mcaat_tpu_torch.parallel.multihost import initialize_distributed
     from mcaat_tpu_torch.pipeline import run_debug_pipeline, run_pipeline
 
     device = resolve_device()
+    # brings up torch.distributed from MCAAT_COORDINATOR / MCAAT_NUM_PROCESSES
+    # / MCAAT_PROCESS_ID; nothing happens in a one-process run
+    multihost = initialize_distributed(device=device)
     print("-------------------------------------------------------")
     print("mcaat_tpu_torch - Metagenomic CRISPR Array Analysis (PyTorch)")
     print("-------------------------------------------------------")
@@ -205,6 +216,12 @@ def run_cli(argv: list[str] | None = None):
         return None
     print("All inputs are correct. [✔]")
     print(f"Device: {device}")
+    if multihost:
+        from mcaat_tpu_torch.parallel.multihost import run_pipeline_multihost
+        from mcaat_tpu_torch.pipeline import PipelineResult
+
+        # process 0 alone gets the result; the others hand back an empty one
+        return run_pipeline_multihost(settings, device=device) or PipelineResult()
     if settings.debug_pipeline:
         return run_debug_pipeline(settings, device=device)
     result = run_pipeline(

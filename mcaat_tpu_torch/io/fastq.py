@@ -49,6 +49,18 @@ def _read_sequences_py(path: str) -> list[str]:
         return []
 
 
+def parse_fastx_chunk(chunk: bytes) -> list[str]:
+    """Parse FASTA/FASTQ records from an in-memory byte slice that starts
+    at a record boundary, with the parser the whole-file path uses (the
+    byte-range reader of ``parallel/multihost.py`` calls it, so chunked
+    and whole-file parsing cannot diverge)."""
+    import io
+
+    if not chunk:
+        return []
+    return _parse_fastx_handle(io.StringIO(chunk.decode("ascii", errors="replace")))
+
+
 def _parse_fastx_handle(fh) -> list[str]:
     sequences: list[str] = []
     first = fh.read(1)

@@ -367,6 +367,34 @@ def count_kmers_for_reads(codes, lengths, k: int, device="cuda"):
     return unique.cpu().numpy(), counts.cpu().numpy()
 
 
+def host_endpoint_kmers(
+    codes: np.ndarray, lengths: np.ndarray, k: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """First/last k-window of each read, packed int64, on HOST numpy:
+    the two k-mers the mapper's keep predicate needs (reference
+    src/reads.cpp:74-76), without uploading the code matrix. Returns
+    ``(first_km [R], last_km [R])``; reads shorter than ``k`` get
+    SENTINEL."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    R, L = codes.shape
+    sen = np.int64(SENTINEL)
+    if L < k or R == 0:
+        s = np.full(R, sen, dtype=np.int64)
+        return s, s.copy()
+    first = np.zeros(R, dtype=np.int64)
+    for t in range(k):
+        first = (first << 2) | codes[:, t].astype(np.int64)
+    start = np.maximum(lengths - k, 0)
+    idx = np.minimum(start[:, None] + np.arange(k, dtype=np.int64)[None, :], L - 1)
+    g = np.take_along_axis(codes, idx, axis=1).astype(np.int64)
+    last = np.zeros(R, dtype=np.int64)
+    for t in range(k):
+        last = (last << 2) | g[:, t]
+    ok = lengths >= k
+    return np.where(ok, first, sen), np.where(ok, last, sen)
+
+
 def derive_nodes_from_edges(u_k1, c_k1, u_last, c_last):
     """Node (k-mer) table derived from the unique (k+1)-mer edge table.
 

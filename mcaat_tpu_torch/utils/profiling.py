@@ -32,28 +32,42 @@ class StageStats:
 
 
 class Profiler:
-    def __init__(self, device: torch.device | str | None = None):
-        self.device = None if device is None else torch.device(device)
+    """Stage timer of one device or, for a mesh of shards, of several
+    (``device`` may be a list): every boundary waits for all of them, and
+    a stage's peak is the largest of theirs."""
+
+    def __init__(self, device=None):
+        if device is None:
+            devices = []
+        elif isinstance(device, (list, tuple, set)):
+            devices = sorted({torch.device(d) for d in device}, key=str)
+        else:
+            devices = [torch.device(device)]
+        self.devices = devices
+        self.device = devices[0] if devices else None
         self.stages: list[StageStats] = []
 
     @property
-    def _cuda(self) -> bool:
-        return self.device is not None and self.device.type == "cuda"
+    def _cuda(self) -> list:
+        return [d for d in self.devices if d.type == "cuda"]
 
     @contextlib.contextmanager
     def stage(self, name: str, **counters):
-        sync(self.device)
-        if self._cuda:
-            torch.cuda.reset_peak_memory_stats(self.device)
+        for d in self._cuda:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
         t0 = time.perf_counter()
         stats = StageStats(name=name, counters=dict(counters))
         try:
             yield stats
         finally:
-            sync(self.device)
+            for d in self._cuda:
+                torch.cuda.synchronize(d)
             stats.seconds = time.perf_counter() - t0
             if self._cuda:
-                stats.device_peak_mb = torch.cuda.max_memory_allocated(self.device) / 2**20
+                stats.device_peak_mb = max(
+                    torch.cuda.max_memory_allocated(d) for d in self._cuda
+                ) / 2**20
             self.stages.append(stats)
 
     def count(self, stage_name: str, **counters) -> None:

@@ -27,11 +27,18 @@ on both strands, then builds the graph with
 
 and the parts, spills, adjacency passes, unique edge and node counts and
 the seconds of the build. A size that runs out of memory is recorded
-with the segment it ran out in, and the next one is tried. Run from the
-repository root:
+with the segment it ran out in, and the next one is tried.
+
+With ``--sharded N`` the same reads are built by
+``mcaat_tpu_torch.parallel.sharded_graph.build_sharded_dbg`` on a mesh of
+N shards that all sit on this one card, so the peak is the sum of the
+shards': the whole build's peak, its seconds, the parts (set
+``MCAAT_COUNT_SHARD_ROWS`` to force several), the rows per shard and the
+bytes that changed shard per stage. Run from the repository root:
 
     python3 scripts/torch_build_peaks.py 126e6:8 495e6:8 1.0e9:8 1.2e9:1.5
     python3 scripts/torch_build_peaks.py --parted 2.0e9:8 3.0e9:8 2.0e9:4
+    python3 scripts/torch_build_peaks.py --sharded 4 126e6:8 495e6:8 1.1e9:8
 
 One JSON object per size goes to standard output, after a line with the
 card's name, power limit and memory.
@@ -174,6 +181,46 @@ def measure(windows: float, coverage: float, parted: bool) -> dict:
     return row
 
 
+def measure_sharded(windows: float, coverage: float, n_shards: int) -> dict:
+    import torch
+
+    from mcaat_tpu_torch.parallel.sharded import make_pipeline_mesh
+    from mcaat_tpu_torch.parallel.sharded_graph import build_sharded_dbg
+    from mcaat_tpu_torch.utils import wire
+
+    dev = torch.device("cuda", 0)
+    codes, lengths = reads_for(windows, coverage)
+    row = {
+        "mode": f"sharded, {n_shards} shards on one card",
+        "windows": int(codes.shape[0]) * 2 * (READ_LEN - K),
+        "coverage": coverage,
+        "reads": int(codes.shape[0]),
+        "count_shard_rows": os.environ.get("MCAAT_COUNT_SHARD_ROWS", "default"),
+    }
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wire.reset()
+    t0 = time.perf_counter()
+    try:
+        sg = build_sharded_dbg(
+            make_pipeline_mesh([dev] * n_shards), codes, lengths, k=K, add_rc=True
+        )
+        torch.cuda.synchronize(dev)
+        row["seconds"] = time.perf_counter() - t0
+        row["peak"] = torch.cuda.max_memory_allocated(dev)
+        row["bytes_per_window"] = row["peak"] / row["windows"]
+        row["resident"] = torch.cuda.memory_allocated(dev)
+        row.update(nodes=sg.n_nodes, parts=sg.n_parts, rows_per_shard=sg.n_live.tolist())
+        row["wire_bytes"] = {k: v["bytes"] for k, v in wire.snapshot().items()}
+        del sg
+    except torch.OutOfMemoryError as e:
+        row["oom"] = str(e).splitlines()[0]
+    finally:
+        torch.cuda.empty_cache()
+    return row
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -182,6 +229,11 @@ def main(argv: list[str]) -> int:
         return 1
     sys.path.insert(0, ROOT)
     parted = "--parted" in argv
+    n_shards = 0
+    if "--sharded" in argv:
+        i = argv.index("--sharded")
+        n_shards = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2 :]
     specs = [a for a in argv if a != "--parted"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -191,7 +243,10 @@ def main(argv: list[str]) -> int:
     print(f"{card}; total_memory {total} bytes", flush=True)
     for spec in specs or ["126e6:8", "495e6:8"]:
         w, c = spec.split(":")
-        row = measure(float(w), float(c), parted)
+        if n_shards:
+            row = measure_sharded(float(w), float(c), n_shards)
+        else:
+            row = measure(float(w), float(c), parted)
         row.update(card=card, total_memory=total)
         print(json.dumps(row), flush=True)
     return 0

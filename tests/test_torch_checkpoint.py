@@ -264,3 +264,112 @@ def test_settings_file_resume_true(tmp_path, monkeypatch):
     assert sorted(os.listdir(out / "graph")) == sorted(ARTIFACTS)
     cfg.write_text(f"input_files={GOLDEN}\noutput_folder={out}\nresume=false\n")
     assert not parse_arguments(["--settings", str(cfg)]).resume
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpoints, both directions between the packages
+# ---------------------------------------------------------------------------
+
+
+def _sharded_fixture(tmp_path):
+    from tests.synthetic import make_metagenome, write_fastq
+
+    meta = make_metagenome(seed=23, n_arrays=1, n_spacers=4, coverage=35.0)
+    fq = str(tmp_path / "r.fq")
+    write_fastq(fq, meta["reads"])
+    return fq
+
+
+def test_jax_sharded_checkpoint_resumes_in_port(tmp_path, monkeypatch):
+    """A ``graph_sharded/`` written by the JAX package loads in the port
+    with its ``T`` adopted and nothing dropped, and the port's resumed run
+    (graph, validity, cycles and reads all from the JAX files) writes the
+    JAX package's report."""
+    from mcaat_tpu_torch.parallel.sharded import make_pipeline_mesh
+    from tests.torch_sharded_util import assert_same_graph, jax_live_rows
+
+    monkeypatch.setenv("MCAAT_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("MCAAT_TORCH_SHARDS", "8")
+    fq = _sharded_fixture(tmp_path)
+    ck = str(tmp_path / "ck")
+    want = jpipeline._run_pipeline_sharded(
+        JSettings(input_files=fq, output_file=str(tmp_path / "j.txt")), verbose=False,
+        checkpoint_dir=ck,
+    )
+    from mcaat_tpu.parallel.sharded import make_pipeline_mesh as jmesh
+
+    sj = jckpt.load_sharded_graph(os.path.join(ck, "graph_sharded"), jmesh())
+    mesh = make_pipeline_mesh()
+    st = tckpt.load_sharded_graph(os.path.join(ck, "graph_sharded"), mesh)
+    assert st.T == sj.shard_capacity and st.T > int(st.n_live.max())  # the bucketed T
+    assert_same_graph(sj, st)
+    # ids were kept as they are: the raw adjacency equals the JAX rows
+    from mcaat_tpu_torch.parallel.exchange import host_replicated
+
+    np.testing.assert_array_equal(host_replicated(mesh, st.out), jax_live_rows(sj, sj.out))
+    tv = tckpt.load_sharded_valid(os.path.join(ck, "valid_pruned"), mesh, st.n_live)
+    jv = jckpt.load_sharded_valid(os.path.join(ck, "valid_pruned"), jmesh())
+    np.testing.assert_array_equal(host_replicated(mesh, tv), jax_live_rows(sj, jv))
+
+    got = tpipeline._run_pipeline_sharded(
+        Settings(input_files=fq, output_file=str(tmp_path / "t.txt")), verbose=False,
+        checkpoint_dir=ck, device="cpu",
+    )
+    assert got.report_text == want.report_text and got.report_text
+    assert not any(s.seconds > 0 and s.name != "spacer_ordering" and s.name != "report"
+                   for s in got.profile.stages)
+    # and from the graph alone: cycles and reads computed on the JAX layout
+    os.remove(os.path.join(ck, "cycles.json"))
+    os.remove(os.path.join(ck, "reads.json"))
+    again = tpipeline._run_pipeline_sharded(
+        Settings(input_files=fq, output_file=str(tmp_path / "t2.txt")), verbose=False,
+        checkpoint_dir=ck, device="cpu",
+    )
+    assert again.report_text == want.report_text
+    assert sorted(again.cycles) == sorted(want.cycles)  # same global ids: same T
+    with pytest.raises(ValueError, match="kp=8"):
+        tckpt.load_sharded_graph(
+            os.path.join(ck, "graph_sharded"), make_pipeline_mesh([torch.device("cpu")] * 4)
+        )
+
+
+def test_port_sharded_checkpoint_resumes_in_jax(tmp_path, monkeypatch):
+    """A ``graph_sharded/`` written by the port has the JAX package's file
+    shapes (every shard padded to the ``T`` of ``meta.json``): the JAX
+    package loads it and its resumed run writes the port's report."""
+    from tests.torch_sharded_util import assert_same_graph
+
+    monkeypatch.setenv("MCAAT_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("MCAAT_TORCH_SHARDS", "8")
+    fq = _sharded_fixture(tmp_path)
+    ck = str(tmp_path / "ck")
+    want = tpipeline._run_pipeline_sharded(
+        Settings(input_files=fq, output_file=str(tmp_path / "t.txt")), verbose=False,
+        checkpoint_dir=ck, device="cpu",
+    )
+    from mcaat_tpu.parallel.sharded import make_pipeline_mesh as jmesh
+    from mcaat_tpu_torch.parallel.sharded import make_pipeline_mesh
+
+    with np.load(os.path.join(ck, "graph_sharded", "shard_0003.npz")) as z:
+        T = z["kmers"].shape[1]
+        assert z["kmers"].shape == (1, T) and z["out"].shape == (1, 4 * T)
+        assert z["valid"].dtype == np.bool_ and z["mult"].dtype == np.int32
+    sj = jckpt.load_sharded_graph(os.path.join(ck, "graph_sharded"), jmesh())
+    st = tckpt.load_sharded_graph(os.path.join(ck, "graph_sharded"), make_pipeline_mesh())
+    assert sj.shard_capacity == st.T == T == int(st.n_live.max())
+    assert_same_graph(sj, st)
+    got = jpipeline._run_pipeline_sharded(
+        JSettings(input_files=fq, output_file=str(tmp_path / "j.txt")), verbose=False,
+        checkpoint_dir=ck,
+    )
+    assert got.report_text == want.report_text and got.report_text
+    assert got.cycles == want.cycles
+    # from the port's graph alone, the JAX package computes the same stages
+    os.remove(os.path.join(ck, "cycles.json"))
+    os.remove(os.path.join(ck, "reads.json"))
+    again = jpipeline._run_pipeline_sharded(
+        JSettings(input_files=fq, output_file=str(tmp_path / "j2.txt")), verbose=False,
+        checkpoint_dir=ck,
+    )
+    assert again.report_text == want.report_text
+    assert sorted(again.cycles) == sorted(want.cycles)

@@ -5,7 +5,7 @@
 run by both packages with the big-graph thresholds lowered (so the lazy
 clip, neighbourhood extraction and region-first mapping branches run)
 and with arrays of more than 24 spacers (so the report takes the batched
-LCS path). It must refuse the multi-device path it has not ported, never
+LCS path). It must take the sharded path for more than one card, never
 fall back to the CPU unasked, and never import jax.
 """
 
@@ -95,15 +95,20 @@ def test_forced_threshold_metagenome_report_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("mesh,count,refused", [("auto", 2, True), ("off", 2, False), ("auto", 1, False)])
 def test_mesh_auto_refuses_more_than_one_card(mesh, count, refused, monkeypatch):
-    """The one refusal left: more than one visible card with --mesh auto
-    (the multi-device path is not ported yet)."""
+    """More than one visible card with --mesh auto used to be refused;
+    it is now the one case that takes the sharded path (``refused`` names
+    the cases that were), and nothing in the package refuses it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
-    check = lambda: tpipeline._check_single_device(Settings(mesh=mesh), torch.device("cuda"))
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the parallel/ path"):
-            check()
-    else:
-        check()
+    monkeypatch.delenv("MCAAT_TORCH_SHARDS", raising=False)
+    assert tpipeline._sharded_mode(Settings(mesh=mesh), torch.device("cuda")) is refused
+    assert not hasattr(tpipeline, "_check_single_device")
+    pkg = os.path.dirname(tpipeline.__file__)
+    for dirpath, _dirs, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as fh:
+                    assert "NotImplementedError" not in fh.read(), name
 
 
 def test_device_is_explicit(monkeypatch):
