@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels (``mcaat_tpu_torch/csrc/*.cu``: the
-   per-pair LCS kernel and the fused ``partial_ratio`` kernel) into one
-   library, with the registers and spills of each;
+   per-pair LCS kernel, the fused ``partial_ratio`` kernel and the
+   all-pairs ``ratio_matrix`` kernel) into one library, with the
+   registers and spills of each;
 3. each kernel against its plain torch version on the card. The per-pair
    kernel: exact equality of LCS and bitwise equality of the ratio over
    batch sizes 1 ... 1M, every length pair in [0, 64]^2, identical and
@@ -18,19 +19,25 @@ Phases (any failure exits non-zero):
    equality with its plain version and with the expanded route (every
    window cut out on the host and scored by the per-pair kernel) over
    every length pair of {0, 1, 2, 31, 32, 33, 63, 64}^2 with planted
-   substrings, tables of 1, 2 and 64 strings, and 1 ... 4097 pairs;
+   substrings, tables of 1, 2 and 64 strings, and 1 ... 4097 pairs. The
+   all-pairs kernel: bitwise equality with its plain version and with
+   the gathered route (the n² pairs laid out as lanes of the per-pair
+   kernel) on tables of 1 ... 2,048 strings with lengths over [0, 64],
+   NaN for a length of 65, and its times at 1,024 strings (1M pairs);
 4. the four golden fixtures of ``tests/data`` through the port on the
    card: byte-identical ``CRISPR_Arrays.txt``;
 5. a planted metagenome (20 arrays of 30 spacers in a 10 Mbp background,
    about 0.8M reads; more than 2M graph nodes, so the neighbourhood
    extraction, lazy clip and region condensation branches run) through
    the CLI entry point: every array reported, at least 98% of the
-   spacers recovered, both kernels launched on that path, and the
-   seconds of the report stage's parts;
-6. both kernels against their plain versions on the inputs the path gave
-   them, and timed on the largest system's: each kernel, its plain
-   version, and the wall time of ``partial_ratio_pairs`` beside that of
-   the expanded route on the same strings;
+   spacers recovered, the ``ratio_matrix`` and ``partial_ratio`` kernels
+   launched on that path, and the seconds of the report stage's parts;
+6. the kernels against their plain versions on the inputs the path gave
+   them (the per-pair kernel on the gathered pairs of the path's tables),
+   and timed on the largest system's: each kernel, its plain version,
+   the wall time of ``partial_ratio_pairs`` beside that of the expanded
+   route and the wall time of ``pairwise_ratio_matrix`` beside that of
+   the gathered route on the same strings;
 7. the chunked build at full width: a 40 Mbp planted metagenome (3.2M
    reads, about 495M windows) built in one pass and in at least 4 row
    parts with a host spill and a chunked adjacency; every table and both
@@ -55,8 +62,9 @@ Phases (any failure exits non-zero):
     device peaks and the exchanged bytes per stage printed;
 12. the sharded pipeline through the CLI entry point
     (``MCAAT_TORCH_SHARDS=4``, ``--mesh auto``): report byte-identical to
-    phase 5's, every array, at least 98% of the spacers, both kernels
-    launched and held against their plain versions, stage seconds; then
+    phase 5's, every array, at least 98% of the spacers, the pipeline's
+    kernels launched and held against their plain versions, stage
+    seconds; then
     ``--mesh off``: the same bytes;
 13. sharded ``--resume``: a first run writes ``graph_sharded/``,
     ``valid_pruned/``, ``cycles.json`` and ``reads.json``, a second loads
@@ -68,9 +76,11 @@ Phases (any failure exits non-zero):
     and phase 5's, byte for byte. This shows that the NCCL calls are well
     formed (types, split sizes), not that two cards talk.
 
-Each path after phase 6 reads its own launch counts of both kernels
-(zeroed just before it) and fails when either is 0; the kernels' inputs
-on phases 8, 10 and 12 are held against the plain versions too.
+Each path after phase 6 reads its own launch counts (zeroed just before
+it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0; the
+kernels' inputs on phases 8, 10 and 12 are held against the plain
+versions too. The per-pair kernel serves the public ``ratio_batch`` and
+no pipeline path: phases 3 and 6 launch it, and fail when they did not.
 
 ``--skip 3,4,7`` leaves phases out while a change is being debugged; such
 a run prints no result lines.
@@ -188,6 +198,31 @@ def compare(kernel, plain, inputs) -> float:
     return max(err, float((l1 - l2).abs().max()) if l1.numel() else 0.0)
 
 
+def gathered_pairs(codes, lengths) -> list:
+    """The n² pairs of a string table as lanes of the per-pair kernel:
+    row i against row j at lane i * n + j."""
+    import torch
+
+    n = codes.shape[0]
+    ii = torch.arange(n, device=codes.device).repeat_interleave(n)
+    jj = torch.arange(n, device=codes.device).repeat(n)
+    return [codes[ii], lengths[ii], codes[jj], lengths[jj]]
+
+
+def compare_matrix(lcs_cuda, plain, inputs) -> float:
+    """The all-pairs kernel on ``(codes, lengths)`` against its plain
+    version and against the gathered route through the per-pair kernel,
+    bit for bit."""
+    import torch
+
+    n = inputs[0].shape[0]
+    got, want = lcs_cuda.ratio_matrix_cuda(*inputs), plain(*inputs)
+    per_pair = lcs_cuda.lcs_ratio_cuda(*gathered_pairs(*inputs))[1].view(n, n)
+    torch.cuda.synchronize()
+    same_bits("ratio_matrix against the gathered per-pair route", got, per_pair)
+    return same_bits("ratio_matrix against the plain version", got, want)
+
+
 def compare_table(kernel, plain, inputs) -> float:
     """The same for the fused partial_ratio kernel and its plain version
     on ``(codes, lengths, s_idx, l_idx)``."""
@@ -243,6 +278,38 @@ def partial_ratio_bound(inputs) -> tuple[float, str]:
     return bound(68 * n + 12 * P, STEP_OPS * steps + MASK_OPS * int(ls.sum()))
 
 
+def ratio_matrix_bound(inputs) -> tuple[float, str, float]:
+    """Bound of the all-pairs kernel on these inputs, and the same with
+    every one of the n² pairs scored. Bytes: the table read once and the
+    matrix written once. Operations: ratio(i, j) == ratio(j, i) bit for
+    bit, so the function needs the n(n+1)/2 pairs with i <= j only: one
+    recurrence step per base of b for each of them (a string is b in
+    (n+1)/2 of them, averaged over the table's order) and the masks once
+    a string. The second figure counts the steps of all n² pairs, what a
+    kernel that mirrors nothing would do."""
+    codes, lengths = inputs
+    n, bases = int(codes.shape[0]), int(lengths.sum())
+    n_bytes = 68 * n + 4 * n * n
+    ms, by = bound(n_bytes, STEP_OPS * (n + 1) * bases / 2 + MASK_OPS * bases)
+    return ms, by, bound(n_bytes, STEP_OPS * n * bases + MASK_OPS * bases)[0]
+
+
+def random_table(rng, n: int, device):
+    """A string table of random 2-bit code rows with lengths over [0, 64];
+    a 64-base string first and, where there is room, an empty string and
+    a duplicate of the first."""
+    import numpy as np
+    import torch
+
+    codes = rng.integers(0, 4, (n, 64), dtype=np.uint8)
+    lengths = rng.integers(0, 65, n).astype(np.int32)
+    lengths[0] = 64
+    if n > 2:
+        lengths[1] = 0
+        codes[2], lengths[2] = codes[0], lengths[0]
+    return [torch.as_tensor(codes, device=device), torch.as_tensor(lengths, device=device)]
+
+
 def random_pairs(rng, B: int, device):
     """Random 2-bit code rows; the first rows carry the edge lengths
     0, 32, 33, 64, identical strings and empty strings."""
@@ -294,12 +361,17 @@ def recovery(meta, report: str):
     return arrays, spacers, found
 
 
-KERNELS = {"lcs_ratio": "lcs_ratio_cuda", "partial_ratio": "partial_ratio_cuda"}
+KERNELS = {
+    "lcs_ratio": "lcs_ratio_cuda",
+    "partial_ratio": "partial_ratio_cuda",
+    "ratio_matrix": "ratio_matrix_cuda",
+}
+PATH_KERNELS = ("partial_ratio", "ratio_matrix")  # what every pipeline path launches
 
 
 @contextlib.contextmanager
 def lcs_run(lcs_cuda, seen: dict | None = None):
-    """Zero the launch counts of both kernels for one path and read them
+    """Zero the launch counts of the kernels for one path and read them
     after; with ``seen``, record each kernel's inputs on that path under
     its name (the counts stay the wrappers' own). Yields a dict whose
     ``launches`` (name -> count) is set on exit."""
@@ -326,9 +398,9 @@ def lcs_run(lcs_cuda, seen: dict | None = None):
 
 
 def need_launches(path: str, launches: dict) -> None:
-    """Fail when a kernel was never launched on ``path``."""
-    for name, count in launches.items():
-        if count == 0:
+    """Fail when a kernel of the pipeline was never launched on ``path``."""
+    for name in PATH_KERNELS:
+        if launches[name] == 0:
             fail(f"{path} never launched the {name} kernel ({launches})")
 
 
@@ -406,7 +478,11 @@ def main() -> int:
     import mcaat_tpu_torch.pipeline as tpipeline
     from mcaat_tpu_torch.report import lcs_cuda
     from mcaat_tpu_torch.report import batched_fuzz as tfuzz
-    from mcaat_tpu_torch.report.batched_fuzz import lcs_ratio_plain, partial_ratio_table_plain
+    from mcaat_tpu_torch.report.batched_fuzz import (
+        lcs_ratio_plain,
+        partial_ratio_table_plain,
+        ratio_matrix_plain,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -417,7 +493,7 @@ def main() -> int:
     def p1():
         print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
 
-    @phase("2 build the LCS and partial_ratio kernels")
+    @phase("2 build the LCS, partial_ratio and ratio_matrix kernels")
     def p2():
         lcs_cuda.build(verbose_ptxas=True)
         info = lcs_cuda.BUILD_INFO
@@ -431,6 +507,7 @@ def main() -> int:
 
     stats = {"max_abs_err": 0.0}
     pstats = {"max_abs_err": 0.0}
+    mstats = {"max_abs_err": 0.0}
 
     def kernel_ratio(*arrays):
         """Lane ratios of the expanded route: upload, per-pair kernel, download."""
@@ -446,7 +523,7 @@ def main() -> int:
         seen: dict = {}
         with lcs_run(lcs_cuda, seen) as run:
             got = tfuzz.partial_ratio_pairs(shorts, longs, device)
-        if run["launches"] != {"lcs_ratio": 0, "partial_ratio": 1}:
+        if run["launches"] != {"lcs_ratio": 0, "partial_ratio": 1, "ratio_matrix": 0}:
             fail(f"{name}: partial_ratio_pairs launched {run['launches']}")
         err = compare_table(lcs_cuda.partial_ratio_cuda, partial_ratio_table_plain,
                             seen["partial_ratio"][0])
@@ -460,8 +537,30 @@ def main() -> int:
               f"(max abs err {err})")
         return got
 
-    @phase("3 both kernels vs plain torch on the card")
+    def check_matrix(inputs) -> None:
+        err = compare_matrix(lcs_cuda, ratio_matrix_plain, inputs)
+        mstats["max_abs_err"] = max(mstats["max_abs_err"], err)
+
+    def gathered_ratio_matrix(strings):
+        """The all-pairs matrix by the gathered route: two uploads, the n²
+        index pairs and four gathered copies made on the card, the
+        per-pair kernel, one copy back."""
+        n = len(strings)
+        codes, lengths = tfuzz.encode_batch(strings)
+        lanes = gathered_pairs(torch.as_tensor(codes, device=device),
+                               torch.as_tensor(lengths, device=device))
+        return lcs_cuda.lcs_ratio_cuda(*lanes)[1].cpu().numpy().reshape(n, n)
+
+    def need_per_pair(where: str, into: dict) -> None:
+        """The per-pair kernel is on no pipeline path: the phases that
+        hold it must have launched it since they zeroed the counts."""
+        into[where] = lcs_cuda.launch_counts()["lcs_ratio"]
+        if into[where] == 0:
+            fail(f"{where} never launched the lcs_ratio kernel")
+
+    @phase("3 the kernels vs plain torch on the card")
     def p3():
+        lcs_cuda.reset_launch_counts()
         rng = np.random.default_rng(0)
         cases = [("length grid 65x65", length_grid(rng, device))]
         for B in (1, 31, 32, 33, 4097, 1 << 20):
@@ -519,6 +618,38 @@ def main() -> int:
             fail(f"out-of-range pairs 7 and 11 should be NaN, got NaN at {nan}")
         print(f"  partial_ratio any row against any row: 5000 pairs equal (max abs err {err}); "
               f"out-of-range indices refused")
+        # the all-pairs kernel
+        for n in (1, 2, 30, 33, 64, 257, 1024, 2048):
+            table = random_table(rng, n, device)
+            check_matrix(table)
+            print(f"  ratio_matrix table of {n} (runs of {lcs_cuda.matrix_run(n)}): {n * n} pairs "
+                  f"equal to the plain version and to the gathered route")
+        good = random_table(rng, 33, device)
+        want = lcs_cuda.ratio_matrix_cuda(*good)
+        good[1][5] = 65
+        out = lcs_cuda.ratio_matrix_cuda(*good)
+        refused = torch.zeros((33, 33), dtype=torch.bool, device=device)
+        refused[5, :] = refused[:, 5] = True
+        if not bool(torch.isnan(out[refused]).all()) or bool(torch.isnan(out[~refused]).any()):
+            fail("a length of 65 should give NaN in row and column 5 and nowhere else")
+        same_bits("ratio_matrix beside a refused string", out[~refused], want[~refused])
+        print("  ratio_matrix: a length of 65 gives NaN in its row and column, nothing else changes")
+        # 1,024 strings: 1,048,576 pairs, the shape of the per-pair kernel's last row
+        table = random_table(rng, 1024, device)
+        lanes = gathered_pairs(*table)
+        mstats["ms_1m"] = graph_ms(lambda: lcs_cuda.ratio_matrix_cuda(*table))
+        mstats["call_ms_1m"] = cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*table), 50)
+        mstats["gathered_kernel_ms_1m"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*lanes))
+        mstats["plain_ms_1m"] = cuda_ms(lambda: ratio_matrix_plain(*table), 5)
+        mstats["bound_ms_1m"], by, mstats["bound_ms_1m_every_pair"] = ratio_matrix_bound(table)
+        print(
+            f"  1,024 strings, 1,048,576 pairs: ratio_matrix {mstats['ms_1m']:.4f} ms on the card "
+            f"(runs of {lcs_cuda.matrix_run(1024)}; {mstats['call_ms_1m']:.4f} ms a call from Python), "
+            f"the per-pair kernel on the gathered lanes {mstats['gathered_kernel_ms_1m']:.4f} ms, plain "
+            f"{mstats['plain_ms_1m']:.4f} ms, bound {mstats['bound_ms_1m']:.4f} ms by {by} "
+            f"({mstats['bound_ms_1m_every_pair']:.4f} ms with all n² pairs scored) ({card})"
+        )
+        need_per_pair("phase 3", stats.setdefault("launches_in_phases", {}))
 
     @phase("4 golden fixtures through the port on the card")
     def p4():
@@ -569,14 +700,28 @@ def main() -> int:
 
         seen: dict = {}
         strings: list = []
+        tables: list = []
         parts: dict = {}
-        pairs_fn = tfuzz.partial_ratio_pairs
+        pairs_fn, matrix_fn = tfuzz.partial_ratio_pairs, tfuzz.pairwise_ratio_matrix
+
+        call_ms: dict = {"partial_ratio_pairs": [], "pairwise_ratio_matrix": []}
 
         def pairs_spy(shorts, longs, dev):
             strings.append((list(shorts), list(longs)))
-            return pairs_fn(shorts, longs, dev)
+            t0 = time.perf_counter()
+            out = pairs_fn(shorts, longs, dev)
+            call_ms["partial_ratio_pairs"].append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        def matrix_spy(table, dev):
+            tables.append(list(table))
+            t0 = time.perf_counter()
+            out = matrix_fn(table, dev)
+            call_ms["pairwise_ratio_matrix"].append(1e3 * (time.perf_counter() - t0))
+            return out
 
         tfuzz.partial_ratio_pairs = pairs_spy
+        tfuzz.pairwise_ratio_matrix = matrix_spy
         try:
             with contextlib.ExitStack() as stack:
                 for name in ("find_common_prefix_kmers", "find_common_suffix_kmers",
@@ -593,6 +738,7 @@ def main() -> int:
                 ], "cli.log")
         finally:
             tfuzz.partial_ratio_pairs = pairs_fn
+            tfuzz.pairwise_ratio_matrix = matrix_fn
         launches = lcs["launches"]
         print("  CLI console output: build/chip_smoke/cli.log")
         # the profiler resets the peak at every stage boundary: the run's
@@ -613,6 +759,7 @@ def main() -> int:
         )
         print(
             f"  lcs_ratio batch sizes {[int(x[0].shape[0]) for x in seen.get('lcs_ratio', [])]}; "
+            f"ratio_matrix strings {[int(x[0].shape[0]) for x in seen.get('ratio_matrix', [])]}; "
             f"partial_ratio (strings, pairs) "
             f"{[(int(x[0].shape[0]), int(x[2].shape[0])) for x in seen.get('partial_ratio', [])]}"
         )
@@ -621,6 +768,12 @@ def main() -> int:
               f"count in their callers too) ({card}):")
         for name in [k for k in parts if not k.endswith("_s")]:
             print(f"    {name}: {parts[name]} calls, {parts[name + '_s']:.4f}s")
+        # a process's first call of a kernel also loads the library and the
+        # kernel's module: the calls after it say what a system costs
+        for name, ms in call_ms.items():
+            rest = sorted(ms[1:])
+            print(f"    {name}: first call {ms[0]:.3f} ms, the {len(rest)} after it "
+                  f"{rest[0]:.3f}-{rest[-1]:.3f} ms, median {rest[len(rest) // 2]:.3f} ms")
         if nodes < 2_000_000:
             fail(f"only {nodes} graph nodes; the smoke needs at least 2M")
         if arrays != len(meta["arrays"]):
@@ -631,33 +784,56 @@ def main() -> int:
         with open(os.path.join(tmp, "out", "CRISPR_Arrays.txt"), "rb") as fh:
             report = fh.read()
         del meta["reads"]
-        main_path.update(launches=launches, seen=seen, fq=fq, strings=strings,
+        main_path.update(launches=launches, seen=seen, fq=fq, strings=strings, tables=tables,
+                         call_ms=call_ms,
                          report_s=report_s, wall=wall, report=report, meta=meta,
                          n_reads=n_reads, stages={s.name: s.seconds for s in result.profile.stages})
         scratch.append(tmp)
 
     def hold_recorded(seen: dict) -> None:
-        """Both kernels against their plain versions on a path's recorded
-        inputs."""
+        """The kernels against their plain versions on a path's recorded
+        inputs (the all-pairs kernel against the gathered route too)."""
         for inputs in seen.get("lcs_ratio", []):
             err = compare(lcs_cuda.lcs_ratio_cuda, lcs_ratio_plain, inputs)
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
         for inputs in seen.get("partial_ratio", []):
             err = compare_table(lcs_cuda.partial_ratio_cuda, partial_ratio_table_plain, inputs)
             pstats["max_abs_err"] = max(pstats["max_abs_err"], err)
+        for inputs in seen.get("ratio_matrix", []):
+            check_matrix(inputs)
 
-    @phase("6 both kernels vs plain torch on the main path's inputs")
+    @phase("6 the kernels vs plain torch on the main path's inputs")
     def p6():
+        lcs_cuda.reset_launch_counts()
         seen = main_path["seen"]
         hold_recorded(seen)
-        big = max(seen["lcs_ratio"], key=lambda x: x[0].shape[0])
+        mbig = max(seen["ratio_matrix"], key=lambda x: x[0].shape[0])
+        mstats["strings"] = int(mbig[0].shape[0])
+        mstats["batch"] = mstats["strings"] ** 2
+        mstats["ms"] = graph_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig))
+        mstats["call_ms"] = cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200)
+        mstats["plain_ms"] = cuda_ms(lambda: ratio_matrix_plain(*mbig), 10)
+        mstats["bound_ms"], mstats["bound_by"], mstats["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
+        print(
+            f"  {len(seen['ratio_matrix'])} main-path ratio_matrix tables equal (plain version and "
+            f"gathered route); largest {mstats['strings']} strings, {mstats['batch']} pairs: kernel "
+            f"{mstats['ms']:.5f} ms on the card ({mstats['call_ms']:.4f} ms a call from Python), "
+            f"plain {mstats['plain_ms']:.4f} ms, bound {mstats['bound_ms']:.6f} ms by "
+            f"{mstats['bound_by']} ({mstats['bound_ms_every_pair']:.6f} ms with all n² pairs scored) ({card})"
+        )
+        # the per-pair kernel on the gathered pairs of every such table, and
+        # timed on the largest's
+        for inputs in seen["ratio_matrix"]:
+            err = compare(lcs_cuda.lcs_ratio_cuda, lcs_ratio_plain, gathered_pairs(*inputs))
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        big = gathered_pairs(*mbig)
         stats["batch"] = int(big[0].shape[0])
         stats["ms"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big))
         stats["call_ms"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 200)
         stats["plain_ms"] = cuda_ms(lambda: lcs_ratio_plain(*big), 10)
         stats["bound_ms"], stats["bound_by"] = lcs_ratio_bound(big)
         print(
-            f"  {len(seen['lcs_ratio'])} main-path lcs_ratio batches equal; largest "
+            f"  lcs_ratio on the gathered pairs of those tables equal; largest "
             f"B={stats['batch']}: kernel {stats['ms']:.5f} ms on the card ({stats['call_ms']:.4f} ms a "
             f"call from Python), plain {stats['plain_ms']:.4f} ms, "
             f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']} ({card})"
@@ -716,6 +892,27 @@ def main() -> int:
             f"{pstats['expanded_kernel_ms']:.5f} ms on the card, bound "
             f"{pstats['expanded_kernel_bound_ms']:.6f} ms by {by}); equal bit for bit ({card})"
         )
+        # the same for the all-pairs score of the largest system's spacers
+        table = max(main_path["tables"], key=len)
+        same_bits("the main path's largest system against the gathered route",
+                  torch.as_tensor(tfuzz.pairwise_ratio_matrix(table, device)),
+                  torch.as_tensor(gathered_ratio_matrix(table)))
+        walls = {"new": [], "old": []}
+        for which in ("old", "new", "new", "old", "old", "new"):
+            t0 = time.perf_counter()
+            if which == "new":
+                tfuzz.pairwise_ratio_matrix(table, device)
+            else:
+                gathered_ratio_matrix(table)
+            walls[which].append(time.perf_counter() - t0)
+        mstats["wall_ms"] = 1e3 * min(walls["new"])
+        mstats["gathered_wall_ms"] = 1e3 * min(walls["old"])
+        print(
+            f"  largest system, {len(table)} spacers: pairwise_ratio_matrix "
+            f"{mstats['wall_ms']:.3f} ms wall; the gathered route {mstats['gathered_wall_ms']:.3f} ms "
+            f"wall; equal bit for bit ({card})"
+        )
+        need_per_pair("phase 6", stats.setdefault("launches_in_phases", {}))
 
     big: dict = {}
 
@@ -957,7 +1154,7 @@ def main() -> int:
 
     def check_planted(path: str, report: bytes, launches: dict) -> None:
         """A planted-20x30 report: phase 5's bytes, every array, at least
-        98% of the spacers, both kernels launched."""
+        98% of the spacers, the pipeline's kernels launched."""
         meta = main_path["meta"]
         arrays, spacers, found = recovery(meta, report.decode())
         print(f"  {path}: arrays {arrays}/{len(meta['arrays'])}, spacers "
@@ -1202,7 +1399,7 @@ def main() -> int:
             "14 process group": sharded["launches_group"][name],
         }
 
-    # no PyTorch call computes an LCS or a partial_ratio: library_ms is null
+    # no PyTorch call computes an LCS, a ratio or a partial_ratio: library_ms is null
     common = {"route": "cuda", "replaces": "mcaat_tpu/report/pallas_dp.py:53", "library_ms": None}
     print(json.dumps({"kernels": [
         {
@@ -1220,6 +1417,7 @@ def main() -> int:
             "ms_1m": stats["ms_1m"],
             "plain_ms_1m": stats["plain_ms_1m"],
             "bound_ms_1m": stats["bound_ms_1m"],
+            "launches_in_phases": stats["launches_in_phases"],
             "launches_on_paths": on_paths("lcs_ratio"),
         },
         {
@@ -1242,7 +1440,32 @@ def main() -> int:
             "expanded_kernel_bound_ms": pstats["expanded_kernel_bound_ms"],
             "launches_on_paths": on_paths("partial_ratio"),
         },
+        {
+            "name": "ratio_matrix",
+            "source": "mcaat_tpu_torch/csrc/ratio_matrix.cu",
+            **common,
+            "launches": main_path["launches"]["ratio_matrix"],
+            "max_abs_err": mstats["max_abs_err"],
+            "ms": mstats["ms"],
+            "call_ms": mstats["call_ms"],
+            "plain_ms": mstats["plain_ms"],
+            "bound_ms": mstats["bound_ms"],
+            "bound_by": mstats["bound_by"],
+            "batch": mstats["batch"],
+            "strings": mstats["strings"],
+            "wall_ms": mstats["wall_ms"],
+            "gathered_wall_ms": mstats["gathered_wall_ms"],
+            "ms_1m": mstats["ms_1m"],
+            "call_ms_1m": mstats["call_ms_1m"],
+            "gathered_kernel_ms_1m": mstats["gathered_kernel_ms_1m"],
+            "plain_ms_1m": mstats["plain_ms_1m"],
+            "bound_ms_1m": mstats["bound_ms_1m"],
+            "bound_ms_every_pair": mstats["bound_ms_every_pair"],
+            "bound_ms_1m_every_pair": mstats["bound_ms_1m_every_pair"],
+            "launches_on_paths": on_paths("ratio_matrix"),
+        },
     ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
+                         "report_call_ms": main_path["call_ms"],
                          "stages_s": main_path["stages"]},
         "planted_20x30_4_shards": {k: sharded[k] for k in (
             "wall", "stages", "peak", "wire", "build_s", "build_peak", "single_build_s",

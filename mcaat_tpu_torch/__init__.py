@@ -2,9 +2,11 @@
 
 The single-device release pipeline of ``mcaat_tpu`` (graph build, prune,
 cycle search, read mapping, spacer ordering, report) rewritten on torch
-tensors, with the one hand-written kernel (the bit-parallel LCS behind
-the report's similarity scores) in CUDA C++ for Hopper
-(``csrc/lcs.cu``). Module paths and public names follow ``mcaat_tpu``,
+tensors, with the one TPU kernel (the bit-parallel LCS behind the
+report's similarity scores) hand-written in CUDA C++ for Hopper as
+three kernels on one register core (``csrc/lcs.cu``,
+``csrc/partial_ratio.cu``, ``csrc/ratio_matrix.cu``;
+``csrc/lcs_core.cuh``). Module paths and public names follow ``mcaat_tpu``,
 so ``mcaat_tpu_torch/kmer/count.py::count_unique`` is the port of
 ``mcaat_tpu/kmer/count.py::count_unique``.
 

@@ -7,11 +7,9 @@
 // into two uint32 words and laid pairs out as [G, 128] vector tiles; here
 // each thread keeps the row in one native uint64 register.
 //
-// For each pair (a, b), with la = |a| and lb = |b| (Hyyro's algorithm):
-//   M[c]  = bit p set iff a[p] == c, for p < la      (match masks, in registers)
-//   full  = la == 64 ? ~0 : (1 << la) - 1            (never shifts by 64)
-//   S     = full; for j < lb: U = S & M[b[j]]; S = ((S + U) | (S - U)) & full
-//   lcs   = la - popcount(S & full)
+// For each pair (a, b), with la = |a| and lb = |b| (Hyyro's algorithm, see
+// lcs_core.cuh):
+//   lcs   = LCS length of a and b
 //   ratio = la + lb > 0 ? 200 * lcs / (la + lb) : 100 (float32, the same
 //           expression as pallas_dp.py:195-196, so results are bitwise equal)
 //
@@ -19,35 +17,33 @@
 // lengths must lie in [0, 64].
 //
 // What bounds it on an H100: each pair reads 136 bytes (two 64-byte code
-// rows and two lengths) and writes 8, and does about 10 integer
-// operations per base of b. On the report's main path it serves the
-// diversity check (pairwise_ratio_matrix: n^2 pairs, 900 for a 30-spacer
-// array), so a launch is latency-bound. At 1M pairs it is memory-bound;
-// each thread reads its rows as four 16-byte vector loads. Coalesced
-// (transposed or packed) code layouts are left for later. partial_ratio
-// has a kernel of its own that expands the alignment windows on the card
-// (partial_ratio.cu).
+// rows and two lengths) and writes 8, which at a million pairs is more
+// time than its integer work needs at the card's peak. In practice it is
+// the integer work, about 20 operations per base of b, that a thread has
+// to get through, and close under it the loads: a million pairs of 26 to
+// 40 bases take only a sixth less time than a million of 64 (PERF.md).
+// The design keeps the integer work to what the data needs:
+// a thread turns each of its two rows into two 64-bit bit planes with one
+// multiply per four bases (row_planes), so the four match masks of a are
+// three-input logic and not 64 predicated steps, and it walks b's planes
+// by shifts for exactly lb steps (a warp runs as long as its longest b).
+// Each row is four 16-byte loads a thread; a warp's loads touch 32
+// separate rows, which a coalesced or 2-bit-packed layout would cure, but
+// the rows are the public function's inputs as they are. Plain loads
+// suffice: there is one pass over the data and nothing to overlap it
+// with, and tensor cores have no part in an integer carry chain.
+//
+// No pipeline path launches it since the report's all-pairs score has a
+// kernel of its own (ratio_matrix.cu), as partial_ratio has
+// (partial_ratio.cu); it serves the public ratio_batch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "lcs_core.cuh"
 
 namespace {
 
-constexpr int kMaxLen = 64;
-constexpr int kThreads = 256;
+using namespace lcs_core;
 
-__device__ __forceinline__ void load_row(const uint8_t* __restrict__ base,
-                                         int64_t row, uint32_t words[16]) {
-  const uint4* p = reinterpret_cast<const uint4*>(base + row * kMaxLen);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint4 v = p[q];
-    words[4 * q + 0] = v.x;
-    words[4 * q + 1] = v.y;
-    words[4 * q + 2] = v.z;
-    words[4 * q + 3] = v.w;
-  }
-}
+constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 lcs_ratio_kernel(const uint8_t* __restrict__ a_codes,
@@ -62,36 +58,14 @@ lcs_ratio_kernel(const uint8_t* __restrict__ a_codes,
   const int la = a_lengths[i];
   const int lb = b_lengths[i];
 
-  uint32_t words[16];
-  load_row(a_codes, i, words);
-  uint64_t m0 = 0, m1 = 0, m2 = 0, m3 = 0;
-#pragma unroll
-  for (int p = 0; p < kMaxLen; ++p) {
-    const uint32_t c = (words[p >> 2] >> (8 * (p & 3))) & 3u;
-    const uint64_t bit = (p < la) ? (1ull << p) : 0ull;
-    m0 |= (c == 0u) ? bit : 0ull;
-    m1 |= (c == 1u) ? bit : 0ull;
-    m2 |= (c == 2u) ? bit : 0ull;
-    m3 |= (c == 3u) ? bit : 0ull;
-  }
-  const uint64_t full = (la >= kMaxLen) ? ~0ull : ((1ull << la) - 1ull);
-
-  load_row(b_codes, i, words);
-  uint64_t s = full;
-#pragma unroll
-  for (int j = 0; j < kMaxLen; ++j) {
-    const uint32_t c = (words[j >> 2] >> (8 * (j & 3))) & 3u;
-    const uint64_t m = (c == 0u) ? m0 : (c == 1u) ? m1 : (c == 2u) ? m2 : m3;
-    const uint64_t u = s & m;
-    const uint64_t next = ((s + u) | (s - u)) & full;
-    s = (j < lb) ? next : s;
-  }
-  const int lcs = la - __popcll(s & full);
+  uint64_t a0, a1, b0, b1;
+  row_planes(a_codes + i * kMaxLen, a0, a1);
+  row_planes(b_codes + i * kMaxLen, b0, b1);
+  const RowMasks masks = match_masks(a0, a1, la);
+  // a row holds 64 bases, whatever its length says
+  const int lcs = lcs_row(masks, la, b0, b1, min(lb, kMaxLen));
   lcs_out[i] = lcs;
-  const int total = la + lb;
-  ratio_out[i] = total > 0
-      ? 200.0f * static_cast<float>(lcs) / static_cast<float>(total)
-      : 100.0f;
+  ratio_out[i] = ratio_of(lcs, la + lb);
 }
 
 }  // namespace

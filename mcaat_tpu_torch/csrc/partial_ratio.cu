@@ -18,8 +18,8 @@
 // where ratio(a, b) = 200 * lcs(a, b) / (|a| + |b|) in float32, the same
 // expression as lcs.cu and pallas_dp.py:195-196, so results are bitwise
 // equal to those of the expanded route. lcs is Hyyro's bit-parallel
-// recurrence with s as the 64-bit row (see lcs.cu). The float32 maximum
-// is exact, so the order of the reduction is free.
+// recurrence with s as the 64-bit row (see lcs_core.cuh). The float32
+// maximum is exact, so the order of the reduction is free.
 //
 // What bounds it on an H100: nothing the card is short of. A report
 // system has 25-64 unique strings (2-4 KB of codes) and n(n-1)/2 pairs
@@ -43,30 +43,14 @@
 // [0, 64] gets NaN and reads nothing outside the table.
 
 #include <cmath>
-#include <cstdint>
-#include <cuda_runtime.h>
+
+#include "lcs_core.cuh"
 
 namespace {
 
-constexpr int kMaxLen = 64;
-constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFullWarp = 0xffffffffu;
+using namespace lcs_core;
 
-// Bit planes of one 64-byte code row across the warp: bit p of plane0 /
-// plane1 is bit 0 / bit 1 of the code at position p. Every lane of the
-// warp must call it.
-__device__ __forceinline__ void bit_planes(const uint8_t* __restrict__ row,
-                                           int lane, uint64_t& plane0,
-                                           uint64_t& plane1) {
-  const uint32_t lo = row[lane];
-  const uint32_t hi = row[lane + 32];
-  const uint32_t p0_lo = __ballot_sync(kFullWarp, lo & 1u);
-  const uint32_t p0_hi = __ballot_sync(kFullWarp, hi & 1u);
-  const uint32_t p1_lo = __ballot_sync(kFullWarp, lo & 2u);
-  const uint32_t p1_hi = __ballot_sync(kFullWarp, hi & 2u);
-  plane0 = (static_cast<uint64_t>(p0_hi) << 32) | p0_lo;
-  plane1 = (static_cast<uint64_t>(p1_hi) << 32) | p1_lo;
-}
+constexpr int kWarpsPerBlock = 4;
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 partial_ratio_kernel(const uint8_t* __restrict__ codes,
@@ -99,11 +83,7 @@ partial_ratio_kernel(const uint8_t* __restrict__ codes,
   uint64_t s0, s1, l0, l1;
   bit_planes(codes + static_cast<int64_t>(si) * kMaxLen, lane, s0, s1);
   bit_planes(codes + static_cast<int64_t>(li) * kMaxLen, lane, l0, l1);
-  const uint64_t full = (ls >= kMaxLen) ? ~0ull : ((1ull << ls) - 1ull);
-  const uint64_t m0 = ~s1 & ~s0 & full;
-  const uint64_t m1 = ~s1 & s0 & full;
-  const uint64_t m2 = s1 & ~s0 & full;
-  const uint64_t m3 = s1 & s0 & full;
+  const RowMasks masks = match_masks(s0, s1, ls);
 
   float best = 0.0f;
   const int n_windows = ls - 1 + max(ll, 1);
@@ -113,20 +93,8 @@ partial_ratio_kernel(const uint8_t* __restrict__ codes,
     const int lw = min(ll, start + ls) - begin;
     if (lw <= 0) continue;
     // begin < ll <= 64 here, so the shifts are below 64
-    uint64_t w0 = l0 >> begin;
-    uint64_t w1 = l1 >> begin;
-    uint64_t s = full;
-    for (int j = 0; j < lw; ++j) {
-      const uint64_t m = (w1 & 1ull) ? ((w0 & 1ull) ? m3 : m2)
-                                     : ((w0 & 1ull) ? m1 : m0);
-      w0 >>= 1;
-      w1 >>= 1;
-      const uint64_t u = s & m;
-      s = ((s + u) | (s - u)) & full;
-    }
-    const int lcs = ls - __popcll(s & full);
-    best = fmaxf(best, 200.0f * static_cast<float>(lcs) /
-                           static_cast<float>(ls + lw));
+    const int lcs = lcs_row(masks, ls, l0 >> begin, l1 >> begin, lw);
+    best = fmaxf(best, ratio_of(lcs, ls + lw));
   }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {

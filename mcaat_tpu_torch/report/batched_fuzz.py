@@ -9,12 +9,13 @@ and repeats of at most 64 bases, so Hyyrö's bit-parallel LCS fits one
                     alignment window of the longer; the device expands
                     the windows from a table of the distinct strings.
 
-:func:`ratio_batch` and :func:`partial_ratio_table` dispatch on where
-their tensors live: CUDA tensors go to the hand-written kernels
-(``report/lcs_cuda.py``; ``csrc/lcs.cu``, ``csrc/partial_ratio.cu``),
+:func:`ratio_batch`, :func:`ratio_matrix` and
+:func:`partial_ratio_table` dispatch on where their tensors live: CUDA
+tensors go to the hand-written kernels (``report/lcs_cuda.py``;
+``csrc/lcs.cu``, ``csrc/ratio_matrix.cu``, ``csrc/partial_ratio.cu``),
 CPU tensors to the plain torch versions below (:func:`lcs_ratio_plain`,
-:func:`partial_ratio_table_plain`), which are also what the kernels are
-checked against.
+:func:`ratio_matrix_plain`, :func:`partial_ratio_table_plain`), which
+are also what the kernels are checked against.
 """
 
 from __future__ import annotations
@@ -130,18 +131,55 @@ def ratio_batch(a_codes, a_lengths, b_codes, b_lengths) -> torch.Tensor:
     raise ValueError(f"ratio_batch: unsupported device {dev}")
 
 
+def ratio_matrix_plain(codes, lengths) -> torch.Tensor:
+    """Plain torch all-pairs fuzz::ratio (float32 [n, n]) of a string
+    table, on any device: what the all-pairs CUDA kernel computes. Every
+    one of the n² pairs is laid out as a lane (row ``i`` against row
+    ``j`` at ``i * n + j``) and scored by :func:`lcs_ratio_plain`."""
+    n = codes.shape[0]
+    dev = codes.device
+    if n == 0:
+        return torch.zeros((0, 0), dtype=torch.float32, device=dev)
+    ii = torch.arange(n, device=dev).repeat_interleave(n)
+    jj = torch.arange(n, device=dev).repeat(n)
+    _lcs, r = lcs_ratio_plain(codes[ii], lengths[ii], codes[jj], lengths[jj])
+    return r.view(n, n)
+
+
+def ratio_matrix(codes, lengths) -> torch.Tensor:
+    """All-pairs fuzz::ratio of a string table, float32 [n, n]: the
+    all-pairs CUDA kernel for tensors on the card, the plain version for
+    tensors on the CPU."""
+    dev = codes.device
+    if dev.type == "cuda":
+        from mcaat_tpu_torch.report.lcs_cuda import ratio_matrix_cuda
+
+        return ratio_matrix_cuda(codes, lengths)
+    if dev.type == "cpu":
+        return ratio_matrix_plain(codes, lengths)
+    raise ValueError(f"ratio_matrix: unsupported device {dev}")
+
+
 def pairwise_ratio_matrix(strings: list[str], device) -> np.ndarray:
-    """All-pairs fuzz::ratio for ≤64bp strings, one batched call."""
+    """All-pairs fuzz::ratio for ≤64bp strings, one batched call: the
+    table goes up in one buffer (the codes as int32 words, then the
+    lengths, cut into views on the device), one score per pair comes
+    back. A longer string is scored by its first 64 bases
+    (:func:`encode_batch`), as in ``mcaat_tpu``."""
     n = len(strings)
     if n == 0:
         return np.zeros((0, 0), dtype=np.float32)
     codes, lengths = encode_batch(strings)
-    codes_t = torch.as_tensor(codes, device=device)
-    lengths_t = torch.as_tensor(lengths, device=device)
-    ii = torch.arange(n, device=device).repeat_interleave(n)
-    jj = torch.arange(n, device=device).repeat(n)
-    r = ratio_batch(codes_t[ii], lengths_t[ii], codes_t[jj], lengths_t[jj])
-    return r.cpu().numpy().reshape(n, n)
+    buf = torch.as_tensor(
+        np.concatenate([codes.view(np.int32).reshape(-1), lengths]), device=device
+    )
+    words = n * MAXLEN // 4
+    out = ratio_matrix(
+        buf[:words].view(torch.uint8).view(n, MAXLEN), buf[words:]
+    ).cpu().numpy()
+    if np.isnan(out).any():
+        raise RuntimeError("pairwise_ratio_matrix: the kernel refused a string's length")
+    return out
 
 
 def partial_ratio_table_plain(codes, lengths, s_idx, l_idx) -> torch.Tensor:

@@ -1,19 +1,22 @@
 """Wrappers of the hand-written CUDA kernels under ``csrc/``.
 
-Both replace ``mcaat_tpu/report/pallas_dp.py::_lcs_kernel``:
+All three replace ``mcaat_tpu/report/pallas_dp.py::_lcs_kernel``:
 :func:`lcs_ratio_cuda` (``csrc/lcs.cu``) scores one pair per thread,
 :func:`partial_ratio_cuda` (``csrc/partial_ratio.cu``) scores one pair
 per warp over all its alignment windows, expanded on the card from a
-table of strings. Every source under ``csrc/`` is compiled by one
-``nvcc`` command for ``sm_90a`` into one shared library with a plain C
-interface at first use (into ``build/mcaat_tpu_torch/``, named by the
-sources' hash so an edited source builds anew) and bound with
+table of strings, and :func:`ratio_matrix_cuda`
+(``csrc/ratio_matrix.cu``) scores every pair of a table of strings, one
+thread per row string. They share one register core
+(``csrc/lcs_core.cuh``). Every ``csrc/*.cu`` is compiled by one ``nvcc``
+command for ``sm_90a`` into one shared library with a plain C interface
+at first use (into ``build/mcaat_tpu_torch/``, named by the sources'
+hash so an edited source or header builds anew) and bound with
 ``ctypes``. A failed build or a refused launch raises.
 
-``LAUNCHES`` and ``PARTIAL_LAUNCHES`` count the launches of the two
-kernels, so that a run can show its main path went through them;
-:func:`launch_counts` reads both and :func:`reset_launch_counts` zeroes
-them.
+``LAUNCHES``, ``PARTIAL_LAUNCHES`` and ``MATRIX_LAUNCHES`` count the
+launches of the three kernels, so that a run can show its main path went
+through them; :func:`launch_counts` reads them and
+:func:`reset_launch_counts` zeroes them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,14 @@ NVCC_FLAGS = [
 
 LAUNCHES = 0  # launches of lcs_ratio_kernel since import (or the last reset)
 PARTIAL_LAUNCHES = 0  # the same for partial_ratio_kernel
+MATRIX_LAUNCHES = 0  # the same for ratio_matrix_kernel
+
+# ratio_matrix_kernel: a warp scores 32 rows against a run of columns. The
+# run grows with the table so that about this many warps have work (an
+# H100 holds 132 x 64 at a time, and at 1,024 strings fewer, longer runs
+# measured slower), up to the kernel's own limit (kMaxRun).
+MATRIX_TARGET_WARPS = 8192
+MATRIX_MAX_RUN = 64
 
 _lib = None
 BUILD_INFO: dict = {}  # seconds, compiler output and path of the last build
@@ -59,12 +70,16 @@ def _nvcc() -> str:
 
 def launch_counts() -> dict:
     """Launches of each kernel since import or the last reset."""
-    return {"lcs_ratio": LAUNCHES, "partial_ratio": PARTIAL_LAUNCHES}
+    return {
+        "lcs_ratio": LAUNCHES,
+        "partial_ratio": PARTIAL_LAUNCHES,
+        "ratio_matrix": MATRIX_LAUNCHES,
+    }
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES, PARTIAL_LAUNCHES
-    LAUNCHES = PARTIAL_LAUNCHES = 0
+    global LAUNCHES, PARTIAL_LAUNCHES, MATRIX_LAUNCHES
+    LAUNCHES = PARTIAL_LAUNCHES = MATRIX_LAUNCHES = 0
 
 
 def build(verbose_ptxas: bool = False) -> str:
@@ -75,7 +90,7 @@ def build(verbose_ptxas: bool = False) -> str:
     if not sources:
         raise RuntimeError(f"no kernel sources under {SOURCE_DIR}")
     sha = hashlib.sha256()
-    for src in sources:
+    for src in sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cuh"))) + sources:
         with open(src, "rb") as fh:
             sha.update(os.path.basename(src).encode() + b"\0" + fh.read() + b"\0")
     digest = sha.hexdigest()[:16]
@@ -110,6 +125,10 @@ def _load():
         lib.mcaat_partial_ratio.restype = ctypes.c_int
         lib.mcaat_partial_ratio.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib.mcaat_ratio_matrix.restype = ctypes.c_int
+        lib.mcaat_ratio_matrix.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         _lib = lib
     return _lib
@@ -203,4 +222,43 @@ def partial_ratio_cuda(
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     PARTIAL_LAUNCHES += 1
+    return out
+
+
+def matrix_run(n: int) -> int:
+    """Columns a warp of ratio_matrix_kernel walks for a table of ``n``
+    strings: 1 while the tiles on and above the diagonal (half of the
+    ``n * ceil(n / 32)`` warp-columns) are fewer than
+    ``MATRIX_TARGET_WARPS``, then as many as keep about that many warps."""
+    warp_columns = n * -(-n // 32)
+    return max(1, min(MATRIX_MAX_RUN, -(-warp_columns // (2 * MATRIX_TARGET_WARPS))))
+
+
+def ratio_matrix_cuda(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """All-pairs fuzz::ratio (float32 [n, n]) of a table of strings, on
+    the card: ``out[i, j]`` scores row ``i`` against row ``j``, the
+    diagonal included. ``codes`` uint8 [n, 64] 2-bit codes, 16-byte
+    aligned, ``lengths`` int32 [n] in [0, 64]. A string with a length out
+    of range comes back as NaN in its row and its column. Launches on the
+    current stream and does not synchronise."""
+    global MATRIX_LAUNCHES
+    fn = "ratio_matrix_cuda"
+    dev = codes.device
+    n = codes.shape[0] if codes.dim() else 0
+    _check(fn, "codes", codes, torch.uint8, (n, 64), dev, 16)
+    _check(fn, "lengths", lengths, torch.int32, (n,), dev, 4)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} takes CUDA tensors, got {dev}")
+    out = torch.empty((n, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mcaat_ratio_matrix(
+            codes.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, matrix_run(n), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    MATRIX_LAUNCHES += 1
     return out

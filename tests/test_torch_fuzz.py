@@ -13,6 +13,11 @@ and carry the ``cuda`` marker.
 once, windows expanded by the device code; on the CPU its plain torch
 version) against ``mcaat_tpu``'s expanded route bit for bit, against a
 direct per-window loop, and within 1e-4 of the host ``partial_ratio``.
+
+The all-pairs matrix: the port's table route (one table up, the pairs
+enumerated by the device code; on the CPU ``ratio_matrix_plain``) against
+``mcaat_tpu``'s ``pairwise_ratio_matrix`` and against its Pallas kernel in
+interpret mode on the gathered pairs, bit for bit.
 """
 
 import numpy as np
@@ -349,9 +354,10 @@ def test_partial_ratio_table_takes_plain_version_for_cpu_tensors():
 def test_launch_counts_are_per_kernel(monkeypatch):
     monkeypatch.setattr(lcs_cuda, "LAUNCHES", 3)
     monkeypatch.setattr(lcs_cuda, "PARTIAL_LAUNCHES", 2)
-    assert lcs_cuda.launch_counts() == {"lcs_ratio": 3, "partial_ratio": 2}
+    monkeypatch.setattr(lcs_cuda, "MATRIX_LAUNCHES", 5)
+    assert lcs_cuda.launch_counts() == {"lcs_ratio": 3, "partial_ratio": 2, "ratio_matrix": 5}
     lcs_cuda.reset_launch_counts()
-    assert lcs_cuda.launch_counts() == {"lcs_ratio": 0, "partial_ratio": 0}
+    assert lcs_cuda.launch_counts() == {"lcs_ratio": 0, "partial_ratio": 0, "ratio_matrix": 0}
 
 
 def test_build_covers_every_kernel_source():
@@ -359,7 +365,163 @@ def test_build_covers_every_kernel_source():
     import os
 
     sources = sorted(os.path.basename(p) for p in glob.glob(os.path.join(lcs_cuda.SOURCE_DIR, "*.cu")))
-    assert sources == ["lcs.cu", "partial_ratio.cu"]
+    assert sources == ["lcs.cu", "partial_ratio.cu", "ratio_matrix.cu"]
+    for src in sources:  # all three on the one register core
+        with open(os.path.join(lcs_cuda.SOURCE_DIR, src)) as fh:
+            assert '#include "lcs_core.cuh"' in fh.read()
+
+
+def _table(strings):
+    codes, lengths = tfuzz.encode_batch(strings)
+    return (codes, lengths), (torch.as_tensor(codes), torch.as_tensor(lengths))
+
+
+def _gathered(codes, lengths):
+    """The n² pairs as lanes, the way mcaat_tpu's pairwise_ratio_matrix
+    lays them out: row i against row j at lane i * n + j."""
+    n = len(lengths)
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    ii, jj = ii.reshape(-1), jj.reshape(-1)
+    return codes[ii], lengths[ii], codes[jj], lengths[jj]
+
+
+MATRIX_TABLES = {
+    "empty strings": lambda rng: ["", rand_dna(rng, 20), "", rand_dna(rng, 41)],
+    "64-base strings": lambda rng: [rand_dna(rng, 64) for _ in range(3)] + ["A" * 64, rand_dna(rng, 63)],
+    "duplicates": lambda rng: [rand_dna(rng, 30)] * 3 + [rand_dna(rng, 30), "ACGT", "ACGT"],
+    "n = 1": lambda rng: [rand_dna(rng, 33)],
+    "n = 1, empty": lambda rng: [""],
+    "n = 0": lambda rng: [],
+    "a 30-spacer system": lambda rng: _rand_strings(rng, 30, lo=26, hi=40),
+    "33 strings of any length": lambda rng: _rand_strings(rng, 33),
+}
+
+
+@pytest.mark.parametrize("case", list(MATRIX_TABLES))
+def test_pairwise_ratio_matrix_matches_jax(case):
+    strings = MATRIX_TABLES[case](np.random.default_rng(500 + len(case)))
+    n = len(strings)
+    got = tfuzz.pairwise_ratio_matrix(strings, CPU)
+    assert got.dtype == np.float32 and got.shape == (n, n)
+    np.testing.assert_array_equal(_bits(got), _bits(jfuzz.pairwise_ratio_matrix(strings)))
+    np.testing.assert_array_equal(_bits(got), _bits(got.T))  # symmetric bit for bit
+    assert (np.diag(got) == 100.0).all()  # the empty string too
+    for i in range(n):
+        for j in range(n):
+            assert abs(got[i, j] - ratio(strings[i], strings[j])) < 1e-4
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_ratio_matrix_plain_matches_jax_and_pallas_interpret(seed):
+    rng = np.random.default_rng(600 + seed)
+    strings = _rand_strings(rng, 5 + 9 * seed) + ["", "A" * 64]
+    strings.append(strings[0])
+    (codes, lengths), t_in = _table(strings)
+    n = len(strings)
+    got = tfuzz.ratio_matrix_plain(*t_in)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, n)
+    got = got.numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(jfuzz.pairwise_ratio_matrix(strings)))
+    lanes = _gathered(codes, lengths)
+    want = np.asarray(ratio_batch_pallas(*lanes, interpret=True)).reshape(n, n)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    # and what the per-pair route of the port gives on the same lanes
+    per_pair = tfuzz.ratio_batch(*(torch.as_tensor(x) for x in lanes)).numpy().reshape(n, n)
+    np.testing.assert_array_equal(_bits(got), _bits(per_pair))
+
+
+def test_pairwise_ratio_matrix_random_tables():
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=30, deadline=None, derandomize=True, database=None)
+    @hypothesis.given(st.lists(st.text(alphabet="ACGTN", max_size=64), max_size=12))
+    def check(strings):
+        got = tfuzz.pairwise_ratio_matrix(strings, CPU)
+        assert got.shape == (len(strings), len(strings))
+        np.testing.assert_array_equal(_bits(got), _bits(jfuzz.pairwise_ratio_matrix(strings)))
+        np.testing.assert_array_equal(_bits(got), _bits(got.T))
+        assert (np.diag(got) == 100.0).all()
+
+    check()
+
+
+def test_pairwise_ratio_matrix_cuts_longer_strings_like_jax():
+    rng = np.random.default_rng(10)
+    strings = [rand_dna(rng, 80), rand_dna(rng, 65), rand_dna(rng, 30)]
+    got = tfuzz.pairwise_ratio_matrix(strings, CPU)
+    np.testing.assert_array_equal(_bits(got), _bits(jfuzz.pairwise_ratio_matrix(strings)))
+    cut = tfuzz.pairwise_ratio_matrix([s[:64] for s in strings], CPU)
+    np.testing.assert_array_equal(_bits(got), _bits(cut))
+
+
+def test_pairwise_ratio_matrix_sends_the_table_in_one_buffer(monkeypatch):
+    """One upload: the codes and the lengths are views of one tensor, and
+    no pair index exists on the host side of the call."""
+    rng = np.random.default_rng(11)
+    strings = _rand_strings(rng, 9)
+    seen = {}
+    plain = tfuzz.ratio_matrix_plain
+
+    def spy(codes, lengths):
+        seen.update(
+            shapes=(tuple(codes.shape), tuple(lengths.shape)),
+            dtypes=(codes.dtype, lengths.dtype),
+            one_buffer=codes.untyped_storage().data_ptr() == lengths.untyped_storage().data_ptr(),
+            aligned=codes.data_ptr() % 16 == 0 and codes.is_contiguous() and lengths.is_contiguous(),
+        )
+        return plain(codes, lengths)
+
+    monkeypatch.setattr(tfuzz, "ratio_matrix_plain", spy)
+    before = lcs_cuda.launch_counts()
+    got = tfuzz.pairwise_ratio_matrix(strings, CPU)
+    assert lcs_cuda.launch_counts() == before  # CPU tensors: no kernel launch
+    assert seen == {
+        "shapes": ((9, 64), (9,)), "dtypes": (torch.uint8, torch.int32),
+        "one_buffer": True, "aligned": True,
+    }
+    np.testing.assert_array_equal(_bits(got), _bits(jfuzz.pairwise_ratio_matrix(strings)))
+
+
+def test_ratio_matrix_takes_plain_version_for_cpu_tensors():
+    rng = np.random.default_rng(12)
+    _np_in, t_in = _table(_rand_strings(rng, 7))
+    before = lcs_cuda.launch_counts()
+    r = tfuzz.ratio_matrix(*t_in)
+    assert lcs_cuda.launch_counts() == before
+    np.testing.assert_array_equal(_bits(r.numpy()), _bits(tfuzz.ratio_matrix_plain(*t_in).numpy()))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lcs_cuda.ratio_matrix_cuda(*t_in)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfuzz.ratio_matrix(*(t.to("meta") for t in t_in))
+
+
+@pytest.mark.parametrize(
+    "arg,bad,match",
+    [
+        (0, torch.zeros((3, 64), dtype=torch.int32), "codes must be"),
+        (0, torch.zeros((3, 32), dtype=torch.uint8), "codes must be"),
+        (0, torch.zeros((3, 128), dtype=torch.uint8)[:, ::2], "codes must be contiguous"),
+        (0, torch.zeros(3 * 64 + 4, dtype=torch.uint8)[4:].view(3, 64), "16-byte aligned"),
+        (1, torch.full((3,), 20, dtype=torch.int64), "lengths must be"),
+        (1, torch.full((4,), 20, dtype=torch.int32), "lengths must be"),
+    ],
+)
+def test_ratio_matrix_cuda_refuses_what_the_kernel_does_not_take(arg, bad, match):
+    inputs = _table_inputs()[:2]
+    inputs[arg] = bad
+    before = lcs_cuda.MATRIX_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        lcs_cuda.ratio_matrix_cuda(*inputs)
+    assert lcs_cuda.MATRIX_LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "n,run", [(0, 1), (1, 1), (30, 1), (64, 1), (257, 1), (512, 1), (1024, 2), (2048, 8), (4096, 32), (100000, 64)]
+)
+def test_matrix_run_spreads_small_tables_and_caps_large_ones(n, run):
+    assert lcs_cuda.matrix_run(n) == run
+    assert 1 <= lcs_cuda.matrix_run(n) <= lcs_cuda.MATRIX_MAX_RUN
 
 
 @pytest.mark.cuda
@@ -435,3 +597,66 @@ def test_partial_ratio_kernel_marks_out_of_range_pairs_on_card():
     l_idx[2] = -1
     out = lcs_cuda.partial_ratio_cuda(codes, lengths, s_idx, l_idx).cpu().numpy()
     assert np.isnan(out[[1, 2]]).all() and (out[[0, 3, 4]] == 100.0).all()
+
+
+def _matrix_case_tables(rng):
+    """Tables of 1, 2, 30, 33, 64 and 257 strings over every length, with
+    empty strings, 64-base strings and duplicates among them."""
+    for n in (1, 2, 30, 33, 64, 257):
+        strings = _rand_strings(rng, n)
+        strings[0] = rand_dna(rng, 64)
+        if n > 2:
+            strings[1] = ""
+            strings[2] = strings[0]
+        yield strings
+
+
+@pytest.mark.cuda
+def test_ratio_matrix_kernel_matches_plain_and_gathered_route_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ratio_matrix kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for strings in _matrix_case_tables(np.random.default_rng(13)):
+        (codes, lengths), _t = _table(strings)
+        n = len(strings)
+        before = lcs_cuda.launch_counts()
+        got = tfuzz.pairwise_ratio_matrix(strings, dev)
+        after = lcs_cuda.launch_counts()
+        assert after["ratio_matrix"] == before["ratio_matrix"] + 1
+        assert after["lcs_ratio"] == before["lcs_ratio"]
+        np.testing.assert_array_equal(_bits(got), _bits(tfuzz.pairwise_ratio_matrix(strings, CPU)))
+        lanes = [torch.as_tensor(x, device=dev) for x in _gathered(codes, lengths)]
+        per_pair = lcs_cuda.lcs_ratio_cuda(*lanes)[1].cpu().numpy().reshape(n, n)
+        np.testing.assert_array_equal(_bits(got), _bits(per_pair))
+    # larger tables, where a warp walks a run of several columns
+    rng = np.random.default_rng(15)
+    for n in (1024, 2048):
+        assert lcs_cuda.matrix_run(n) > 1
+        codes = rng.integers(0, 4, (n, 64), dtype=np.uint8)
+        lengths = rng.integers(0, 65, n).astype(np.int32)
+        got = lcs_cuda.ratio_matrix_cuda(
+            torch.as_tensor(codes, device=dev), torch.as_tensor(lengths, device=dev)
+        )
+        lanes = [torch.as_tensor(x, device=dev) for x in _gathered(codes, lengths)]
+        per_pair = lcs_cuda.lcs_ratio_cuda(*lanes)[1].view(n, n)
+        assert torch.equal(got.view(torch.int32), per_pair.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ratio_matrix_kernel_marks_out_of_range_lengths_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ratio_matrix kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    strings = _rand_strings(rng, 40)
+    (codes, lengths), _t = _table(strings)
+    want = tfuzz.pairwise_ratio_matrix(strings, CPU)
+    lengths[5], lengths[37] = 65, -1
+    out = lcs_cuda.ratio_matrix_cuda(
+        torch.as_tensor(codes, device=dev), torch.as_tensor(lengths, device=dev)
+    ).cpu().numpy()
+    bad = np.zeros((40, 40), dtype=bool)
+    bad[[5, 37], :] = True
+    bad[:, [5, 37]] = True
+    assert np.isnan(out[bad]).all()
+    np.testing.assert_array_equal(_bits(out[~bad]), _bits(want[~bad]))
