@@ -76,11 +76,32 @@ Phases (any failure exits non-zero):
     and phase 5's, byte for byte. This shows that the NCCL calls are well
     formed (types, split sizes), not that two cards talk.
 
+15. the two build engines on the input of phase 5:
+    ``build_dbg_from_reads`` with ``engine="join"`` and ``engine="inst"``
+    in turns; k-mers, multiplicities, both adjacencies and both endpoint
+    tensors equal element for element, seconds and device peak of each;
+    ``build_dbg`` on the tables alone (no source ids: the two-sided
+    checked join) and the whole build under ``MCAAT_VERIFY_ADJ=1`` (the
+    checked destination join) give the same graph; ``device_memory_stats``
+    after a profiled build;
+16. the direct-call API and the profiling tools: ``map_reads_to_nodes``
+    on the first 200,000 reads against ``graph.lookup`` (every window
+    hits), ``chains_from_ids`` against ``get_reads`` for phase 5's cycle
+    set, ``count_nodes_and_edges`` against a forward-strand build,
+    ``lcs_batch`` on CUDA tensors (the per-pair kernel's length output)
+    against ``lcs_batch_plain``, a golden fixture inside ``device_trace``
+    (the Chrome trace names CUDA kernels), and ``Profiler.to_json`` of
+    phase 5's run.
+
 Each path after phase 6 reads its own launch counts (zeroed just before
 it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0; the
 kernels' inputs on phases 8, 10 and 12 are held against the plain
 versions too. The per-pair kernel serves the public ``ratio_batch`` and
-no pipeline path: phases 3 and 6 launch it, and fail when they did not.
+``lcs_batch`` and no pipeline path: phases 3 and 6 launch it, and fail
+when they did not, and phase 16 drives ``lcs_batch`` with the counts
+zeroed just before and fails when the kernel was not launched. Phase 3
+also measures the card's rate of 32-bit integer multiply-adds
+(``csrc/int_rate.cu``) and prints it beside ``PEAK_INT_OPS_S``.
 
 ``--skip 3,4,7`` leaves phases out while a change is being debugged; such
 a run prints no result lines.
@@ -244,22 +265,24 @@ STEP_OPS = 20  # one step of the recurrence: about 10 operations on 64 bits
 MASK_OPS = 8  # building the four match masks, per base of the row string
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """(least milliseconds the card could take, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_INT_OPS_S
+def bound(n_bytes: float, n_ops: float, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str]:
+    """(least milliseconds the card could take, "bytes" or "operations").
+    ``int_ops_s`` is the integer rate the operations are held against:
+    the assumed peak, or the rate phase 3 measured."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / int_ops_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def lcs_ratio_bound(inputs) -> tuple[float, str]:
+def lcs_ratio_bound(inputs, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str]:
     """Bound of the per-pair kernel on these inputs: both code rows and
     lengths read once and both outputs written once (144 bytes a pair);
     one recurrence step per base of b and the masks of a."""
     _a, la, _b, lb = inputs
     B = int(la.numel())
-    return bound(144 * B, STEP_OPS * int(lb.sum()) + MASK_OPS * int(la.sum()))
+    return bound(144 * B, STEP_OPS * int(lb.sum()) + MASK_OPS * int(la.sum()), int_ops_s)
 
 
-def partial_ratio_bound(inputs) -> tuple[float, str]:
+def partial_ratio_bound(inputs, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str]:
     """Bound of the fused kernel on these inputs: the table, both index
     vectors and the output once; one recurrence step per base of every
     non-empty window of every pair (what this data needs), and the masks
@@ -275,10 +298,10 @@ def partial_ratio_bound(inputs) -> tuple[float, str]:
     lw = torch.minimum(ll[:, None], start + ls[:, None]) - torch.clamp(start, min=0)
     live = (w < (ls - 1 + torch.clamp(ll, min=1))[:, None]) & (ls[:, None] > 0)
     steps = int(torch.clamp(lw, min=0)[live].sum())
-    return bound(68 * n + 12 * P, STEP_OPS * steps + MASK_OPS * int(ls.sum()))
+    return bound(68 * n + 12 * P, STEP_OPS * steps + MASK_OPS * int(ls.sum()), int_ops_s)
 
 
-def ratio_matrix_bound(inputs) -> tuple[float, str, float]:
+def ratio_matrix_bound(inputs, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str, float]:
     """Bound of the all-pairs kernel on these inputs, and the same with
     every one of the n² pairs scored. Bytes: the table read once and the
     matrix written once. Operations: ratio(i, j) == ratio(j, i) bit for
@@ -290,8 +313,8 @@ def ratio_matrix_bound(inputs) -> tuple[float, str, float]:
     codes, lengths = inputs
     n, bases = int(codes.shape[0]), int(lengths.sum())
     n_bytes = 68 * n + 4 * n * n
-    ms, by = bound(n_bytes, STEP_OPS * (n + 1) * bases / 2 + MASK_OPS * bases)
-    return ms, by, bound(n_bytes, STEP_OPS * n * bases + MASK_OPS * bases)[0]
+    ms, by = bound(n_bytes, STEP_OPS * (n + 1) * bases / 2 + MASK_OPS * bases, int_ops_s)
+    return ms, by, bound(n_bytes, STEP_OPS * n * bases + MASK_OPS * bases, int_ops_s)[0]
 
 
 def random_table(rng, n: int, device):
@@ -506,6 +529,13 @@ def main() -> int:
                 fail(f"the build's report names no {name}_kernel")
 
     stats = {"max_abs_err": 0.0}
+    int_rate: dict = {}
+
+    def measured_int_rate() -> float:
+        """The integer rate phase 3's probe measured (the assumed peak
+        while that phase is skipped), for the restated bounds."""
+        return int_rate.get("madd_per_s", PEAK_INT_OPS_S)
+
     pstats = {"max_abs_err": 0.0}
     mstats = {"max_abs_err": 0.0}
 
@@ -561,6 +591,38 @@ def main() -> int:
     @phase("3 the kernels vs plain torch on the card")
     def p3():
         lcs_cuda.reset_launch_counts()
+        # the integer roof: what the card sustains in independent 32-bit
+        # multiply-adds, beside the peak the bounds above assume
+        def probe(blocks: int, iters: int):
+            out = torch.empty(blocks * lcs_cuda.INT_RATE_THREADS, dtype=torch.int32, device=device)
+            return out, lcs_cuda.int_rate_probe(out, blocks, iters)
+
+        small, _n = probe(4, 64)  # held against numpy's wrapping uint32 arithmetic
+        x = np.arange(small.numel(), dtype=np.uint32)
+        want = np.zeros_like(x)
+        for j in range(lcs_cuda.INT_RATE_CHAINS):
+            v = x + np.uint32((0x9E3779B9 * (j + 1)) & 0xFFFFFFFF)
+            for _ in range(64):
+                v = v * np.uint32(1664525) + np.uint32(1013904223)
+            want ^= v
+        if not np.array_equal(small.cpu().numpy().view(np.uint32), want):
+            fail("the integer-rate probe's result differs from numpy's")
+        blocks, iters = 132 * 16, 4096
+        probe_out, n_madd = probe(blocks, iters)
+        ms = min(cuda_ms(lambda: lcs_cuda.int_rate_probe(probe_out, blocks, iters), 10) for _ in range(3))
+        int_rate["madd_per_s"] = n_madd / (ms * 1e-3)
+        int_rate["ms"], int_rate["madds"] = ms, n_madd
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        int_rate["clocks_sm_now_max"] = clock
+        print(
+            f"  integer roof: {n_madd} independent 32-bit multiply-adds in {ms:.4f} ms = "
+            f"{int_rate['madd_per_s'] / 1e12:.2f}e12 a second measured, beside PEAK_INT_OPS_S = "
+            f"{PEAK_INT_OPS_S / 1e12:.1f}e12 assumed ({int_rate['madd_per_s'] / PEAK_INT_OPS_S:.3f} of it; "
+            f"SM clock now, max: {clock}) ({card})"
+        )
         rng = np.random.default_rng(0)
         cases = [("length grid 65x65", length_grid(rng, device))]
         for B in (1, 31, 32, 33, 4097, 1 << 20):
@@ -584,6 +646,7 @@ def main() -> int:
         stats["ms_1m"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 20)
         stats["plain_ms_1m"] = cuda_ms(lambda: lcs_ratio_plain(*big), 5)
         stats["bound_ms_1m"], by = lcs_ratio_bound(big)
+        stats["measured_rate_bound_1m"] = lcs_ratio_bound(big, measured_int_rate())
         print(
             f"  1,048,576 pairs: kernel {stats['ms_1m']:.4f} ms, plain "
             f"{stats['plain_ms_1m']:.4f} ms, bound {stats['bound_ms_1m']:.4f} ms by {by} ({card})"
@@ -642,6 +705,7 @@ def main() -> int:
         mstats["gathered_kernel_ms_1m"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*lanes))
         mstats["plain_ms_1m"] = cuda_ms(lambda: ratio_matrix_plain(*table), 5)
         mstats["bound_ms_1m"], by, mstats["bound_ms_1m_every_pair"] = ratio_matrix_bound(table)
+        mstats["measured_rate_bound_1m"] = ratio_matrix_bound(table, measured_int_rate())[:2]
         print(
             f"  1,024 strings, 1,048,576 pairs: ratio_matrix {mstats['ms_1m']:.4f} ms on the card "
             f"(runs of {lcs_cuda.matrix_run(1024)}; {mstats['call_ms_1m']:.4f} ms a call from Python), "
@@ -787,7 +851,8 @@ def main() -> int:
         main_path.update(launches=launches, seen=seen, fq=fq, strings=strings, tables=tables,
                          call_ms=call_ms,
                          report_s=report_s, wall=wall, report=report, meta=meta,
-                         n_reads=n_reads, stages={s.name: s.seconds for s in result.profile.stages})
+                         n_reads=n_reads, stages={s.name: s.seconds for s in result.profile.stages},
+                         cycles=result.cycles, profile_json=result.profile.to_json(), nodes=nodes)
         scratch.append(tmp)
 
     def hold_recorded(seen: dict) -> None:
@@ -814,6 +879,7 @@ def main() -> int:
         mstats["call_ms"] = cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200)
         mstats["plain_ms"] = cuda_ms(lambda: ratio_matrix_plain(*mbig), 10)
         mstats["bound_ms"], mstats["bound_by"], mstats["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
+        mstats["measured_rate_bound"] = ratio_matrix_bound(mbig, measured_int_rate())[:2]
         print(
             f"  {len(seen['ratio_matrix'])} main-path ratio_matrix tables equal (plain version and "
             f"gathered route); largest {mstats['strings']} strings, {mstats['batch']} pairs: kernel "
@@ -832,6 +898,7 @@ def main() -> int:
         stats["call_ms"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 200)
         stats["plain_ms"] = cuda_ms(lambda: lcs_ratio_plain(*big), 10)
         stats["bound_ms"], stats["bound_by"] = lcs_ratio_bound(big)
+        stats["measured_rate_bound"] = lcs_ratio_bound(big, measured_int_rate())
         print(
             f"  lcs_ratio on the gathered pairs of those tables equal; largest "
             f"B={stats['batch']}: kernel {stats['ms']:.5f} ms on the card ({stats['call_ms']:.4f} ms a "
@@ -845,6 +912,7 @@ def main() -> int:
         pstats["call_ms"] = cuda_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig), 200)
         pstats["plain_ms"] = cuda_ms(lambda: partial_ratio_table_plain(*pbig), 10)
         pstats["bound_ms"], pstats["bound_by"] = partial_ratio_bound(pbig)
+        pstats["measured_rate_bound"] = partial_ratio_bound(pbig, measured_int_rate())
         print(
             f"  {len(seen['partial_ratio'])} main-path partial_ratio tables equal; largest "
             f"{pstats['strings']} strings, P={pstats['batch']}: kernel {pstats['ms']:.5f} ms on the "
@@ -1373,9 +1441,252 @@ def main() -> int:
               "group of one process; it does not show two cards talking")
         sharded.update(launches_group=lcs["launches"], group_wall=wall)
 
+    engines: dict = {}
+
+    @phase("15 the build engines: join vs inst, the two-sided join, MCAAT_VERIFY_ADJ")
+    def p15():
+        from mcaat_tpu_torch.graph import dbg
+        from mcaat_tpu_torch.io.fastq import read_encoded_batch
+        from mcaat_tpu_torch.utils.profiling import Profiler, device_memory_stats
+
+        batch = read_encoded_batch(main_path["fq"])
+        engines["batch"] = batch
+
+        def timed_build(**kw):
+            eps: dict = {}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g = dbg.build_dbg_from_reads(
+                batch.codes, batch.lengths, endpoints_out=eps, device=device, **kw
+            )
+            torch.cuda.synchronize()
+            return g, eps, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+        def same_graph(what: str, g, ref) -> None:
+            for f in ("kmers", "mult", "out", "in_", "valid"):
+                a, b = getattr(g, f), getattr(ref, f)
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"{what}: {f} differs")
+
+        if dbg.BUILD_ENGINE != "join":
+            fail(f"BUILD_ENGINE is {dbg.BUILD_ENGINE!r}")
+        runs: dict = {"join": [], "inst": []}
+        ref = ref_eps = None
+        for engine in ("join", "inst", "inst", "join"):
+            g, eps, s, peak = timed_build(engine=engine)
+            runs[engine].append((s, peak))
+            if ref is None:
+                ref, ref_eps = g, eps
+                continue
+            same_graph(f"engine={engine} against engine=join", g, ref)
+            for key in ("first_km", "last_km"):
+                if eps[key].shape[0] != batch.num_reads or not torch.equal(eps[key], ref_eps[key]):
+                    fail(f"engine={engine}: {key} differs from engine=join's")
+            del g, eps
+        n_edges = int((ref.out >= 0).sum())
+        print(f"  graph: {ref.size} nodes, {n_edges} edges; engine=inst equals engine=join element "
+              f"for element (kmers, mult, out, in_, valid, endpoints), twice")
+        for engine in ("join", "inst"):
+            print(f"  engine={engine}: " + ", ".join(
+                f"{s:.3f}s at {peak / 2**30:.2f} GiB" for s, peak in runs[engine]) + f" ({card})")
+        if ref.size != main_path["nodes"]:
+            fail(f"the build has {ref.size} nodes, phase 5's had {main_path['nodes']}")
+        # build_dbg on the tables alone: the edge table is read off the graph
+        # (slot 4v+b holds an edge v.b), no source ids are given, so both
+        # endpoints take the checked two-sided join
+        slots = torch.nonzero(ref.out >= 0).flatten()
+        u24 = (ref.kmers[slots // 4] << 2) | (slots % 4)
+        del slots
+        counts: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting(dbg, "_join_lookup2", counts), counting(dbg, "_join_lookup1_trusted", counts):
+            g2 = dbg.build_dbg(ref.kmers, ref.mult, u24)
+        torch.cuda.synchronize()
+        s2 = time.perf_counter() - t0
+        same_graph("build_dbg without u_id", g2, ref)
+        if counts["_join_lookup2"] < 1 or counts["_join_lookup1_trusted"] != 0:
+            fail(f"build_dbg without u_id took {counts}")
+        # a foreign edge (its suffix is no node) is dropped by that join
+        mask23 = (1 << 46) - 1
+        cand = (ref.kmers[:4096] << 2) | 3
+        foreign = cand[(dbg._lookup(ref.kmers, cand & mask23) < 0)][:1]
+        if foreign.numel() != 1:
+            fail("no foreign edge found to plant")
+        g3 = dbg.build_dbg(ref.kmers, ref.mult, torch.sort(torch.cat([u24, foreign])).values)
+        same_graph("build_dbg with a foreign edge", g3, ref)
+        del g2, g3, u24
+        print(f"  build_dbg(u23, c23, u24) without source ids: equal adjacency, "
+              f"{counts['_join_lookup2']} two-sided join(s), {s2:.3f}s; a planted foreign edge is dropped")
+        counts = {}
+        os.environ["MCAAT_VERIFY_ADJ"] = "1"
+        try:
+            with counting(dbg, "_join_lookup1", counts), counting(dbg, "_join_lookup1_trusted", counts):
+                g4, _eps, s4, peak4 = timed_build(engine="join")
+        finally:
+            del os.environ["MCAAT_VERIFY_ADJ"]
+        same_graph("the build under MCAAT_VERIFY_ADJ=1", g4, ref)
+        if counts["_join_lookup1"] < 1 or counts["_join_lookup1_trusted"] != 0:
+            fail(f"MCAAT_VERIFY_ADJ=1 took {counts}")
+        del g4
+        print(f"  MCAAT_VERIFY_ADJ=1: the checked destination join ({counts['_join_lookup1']} call(s)), "
+              f"equal graph, {s4:.3f}s at {peak4 / 2**30:.2f} GiB ({card})")
+        # device_memory_stats after a profiled build
+        prof = Profiler(device)
+        with prof.stage("graph_build"):
+            g5 = dbg.build_dbg_from_reads(batch.codes, batch.lengths, device=device)
+        st = device_memory_stats(device)
+        stage_peak = prof.stages[0].device_peak_mb * 2**20
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  device_memory_stats after a profiled build: {st}; the stage's peak "
+              f"{stage_peak / 2**30:.2f} GiB")
+        if set(st) != {"bytes_in_use", "bytes_limit", "peak_bytes_in_use", "bytes_reserved"}:
+            fail(f"device_memory_stats has keys {sorted(st)}")
+        if st["bytes_limit"] != total or st["peak_bytes_in_use"] < stage_peak:
+            fail("device_memory_stats disagrees with the card's total or the stage's peak")
+        if not (st["bytes_reserved"] >= st["bytes_in_use"] > 0):
+            fail("device_memory_stats: reserved < in use")
+        del g5
+        engines.update(graph=ref, runs=runs)
+
+    @phase("16 the direct-call API, lcs_batch on the card, device_trace, Profiler.to_json")
+    def p16():
+        from mcaat_tpu_torch.io.fastq import ReadBatch
+        from mcaat_tpu_torch.graph import dbg
+        from mcaat_tpu_torch.kmer import count as kcount
+        from mcaat_tpu_torch.pipeline import run_pipeline
+        from mcaat_tpu_torch.reads.mapper import chains_from_ids, get_reads, map_reads_to_nodes
+        from mcaat_tpu_torch.settings import Settings
+        from mcaat_tpu_torch.utils.profiling import device_trace
+
+        graph, batch = engines["graph"], engines["batch"]
+        k = graph.k
+        sub = ReadBatch(codes=batch.codes[:200_000], lengths=batch.lengths[:200_000])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, n_windows = map_reads_to_nodes(graph, sub)
+        s_map = time.perf_counter() - t0
+        if ids.dtype != np.int32 or ids.shape != (sub.num_reads, sub.max_len - k + 1):
+            fail(f"map_reads_to_nodes gave {ids.dtype} {ids.shape}")
+        km = kcount.extract_kmers(torch.as_tensor(sub.codes, device=device),
+                                  torch.as_tensor(sub.lengths, device=device), k)
+        if not np.array_equal(graph.lookup(km.reshape(-1)).reshape(km.shape).cpu().numpy(), ids):
+            fail("map_reads_to_nodes differs from graph.lookup of the same windows")
+        del km
+        live = np.arange(ids.shape[1])[None, :] < n_windows[:, None]
+        if not (ids[live] >= 0).all() or not (ids[~live] == -1).all():
+            fail("a window of a read of the build missed the graph")
+        print(f"  map_reads_to_nodes: {sub.num_reads} reads, {int(live.sum())} windows, every one a "
+              f"hit, equal to graph.lookup; {s_map:.3f}s ({card})")
+        cycles = main_path["cycles"]
+        cycle_nodes = {int(n) for c in cycles for n in c}
+        chains = chains_from_ids(ids, n_windows, sub.lengths, k, cycle_nodes)
+        want = get_reads(graph, "first 200,000 reads", None, cycles,
+                         batches={"first 200,000 reads": sub})
+        if not (np.array_equal(chains.flat, want.flat) and np.array_equal(chains.offsets, want.offsets)):
+            fail("chains_from_ids differs from get_reads' chains")
+        if len(chains) == 0:
+            fail("no read of the first 200,000 was kept")
+        print(f"  chains_from_ids: {len(chains)} kept reads over {len(cycle_nodes)} cycle nodes, equal "
+              f"to get_reads' chains")
+        del ids, chains, want
+        # count_nodes_and_edges counts the forward strand: against a build without RC
+        fwd = dbg.build_dbg_from_reads(batch.codes, batch.lengths, add_reverse_complement=False,
+                                       device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u_k, c_k, n_k, u_k1, n_k1 = kcount.count_nodes_and_edges(
+            torch.as_tensor(batch.codes, device=device), torch.as_tensor(batch.lengths, device=device), k)
+        torch.cuda.synchronize()
+        s_cnt = time.perf_counter() - t0
+        slots = torch.nonzero(fwd.out >= 0).flatten()
+        edges = (fwd.kmers[slots // 4] << 2) | (slots % 4)
+        if not (torch.equal(u_k, fwd.kmers) and torch.equal(c_k, fwd.mult) and n_k == fwd.size
+                and n_k1 == int(edges.shape[0]) and torch.equal(u_k1, edges)):
+            fail("count_nodes_and_edges differs from the forward-strand build's tables")
+        print(f"  count_nodes_and_edges: {n_k} nodes, {n_k1} edges, equal to the forward-strand "
+              f"build's tables; {s_cnt:.3f}s ({card})")
+        del fwd, u_k, c_k, u_k1, slots, edges
+        # lcs_batch on the card is the per-pair kernel's length output: this
+        # slice's path for that kernel, counts zeroed just before
+        grid = length_grid(np.random.default_rng(0), device)
+        with lcs_run(lcs_cuda) as run:
+            got = tfuzz.lcs_batch(*grid)
+            torch.cuda.synchronize()
+        engines["launches"] = run["launches"]
+        if run["launches"]["lcs_ratio"] < 1:
+            fail(f"lcs_batch on CUDA tensors never launched the lcs_ratio kernel ({run['launches']})")
+        want = tfuzz.lcs_batch_plain(*grid)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            fail("lcs_batch on the card differs from lcs_batch_plain")
+        err = compare(lcs_cuda.lcs_ratio_cuda, lcs_ratio_plain, grid)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        print(f"  lcs_batch on the card: {got.numel()} pairs equal to lcs_batch_plain, launches "
+              f"{run['launches']}")
+        # a golden fixture inside device_trace
+        data = os.path.join(ROOT, "tests", "data")
+        trace_dir = os.path.join(ROOT, "build", "chip_smoke", "trace")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            s = Settings(input_files=os.path.join(data, "golden_reads.fq"),
+                         output_file=os.path.join(tmp, "golden.txt"))
+            with device_trace(trace_dir) as prof:
+                t0 = time.perf_counter()
+                r = run_pipeline(s, verbose=False, device=device)
+                s_trace = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            run_pipeline(s, verbose=False, device=device)
+            s_plain = time.perf_counter() - t0
+        with open(os.path.join(data, "golden_CRISPR_Arrays.txt")) as fh:
+            if r.report_text != fh.read():
+                fail("the traced golden run's report differs")
+        files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        if len(files) != 1:
+            fail(f"device_trace wrote {files}")
+        with open(os.path.join(trace_dir, files[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            fail("the trace names no CUDA kernel (is CUPTI missing?)")
+        busy_us = sum(e.get("dur", 0) for e in kernels)
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e["name"]] = by_name.get(e["name"], 0) + e.get("dur", 0)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        print(f"  device_trace on a golden fixture: {len(events)} events, {len(kernels)} CUDA kernel "
+              f"launches of {len(by_name)} kernels, {busy_us / 1e3:.2f} ms of kernel time in a "
+              f"{s_trace:.2f}s run ({s_plain:.2f}s untraced); trace "
+              f"{os.path.relpath(os.path.join(trace_dir, files[0]), ROOT)}; report byte-identical")
+        for name, us in top:
+            print(f"    {us / 1e3:8.3f} ms  {name[:100]}")
+        if not any(k.key.startswith("aten::") for k in prof.key_averages()):
+            fail("the profiler's key_averages hold no aten operation")
+        # Profiler.to_json of phase 5's run
+        stages = json.loads(main_path["profile_json"])
+        names = [st["name"] for st in stages]
+        if names != ["graph_build", "cycle_search", "read_mapping", "spacer_ordering", "report"]:
+            fail(f"Profiler.to_json has the stages {names}")
+        for st in stages:
+            if set(st) != {"name", "seconds", "counters", "rss_mb", "device_peak_mb"}:
+                fail(f"a stage of Profiler.to_json has the keys {sorted(st)}")
+            if not (st["seconds"] > 0 and st["rss_mb"] > 0 and st["device_peak_mb"] is not None):
+                fail(f"stage {st['name']} of Profiler.to_json is empty: {st}")
+        counters = {st["name"]: st["counters"] for st in stages}
+        if counters["graph_build"].get("nodes") != main_path["nodes"] or not (
+                counters["cycle_search"].get("start_nodes", 0) > 0
+                and counters["read_mapping"].get("reads", 0) > 0
+                and counters["spacer_ordering"].get("systems", 0) > 0):
+            fail(f"Profiler.to_json lost counters: {counters}")
+        print(f"  Profiler.to_json of phase 5's run: {counters}; host RSS at stage ends "
+              f"{[st['rss_mb'] for st in stages]} MB")
+        engines.pop("graph")
+        engines.pop("batch")
+
     scratch: list = []
     sharded: dict = {}
-    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14]
+    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16]
     try:
         for i, run in enumerate(phases, start=1):
             if i not in skip:
@@ -1397,6 +1708,7 @@ def main() -> int:
             "12 sharded CLI": sharded["launches"][name],
             "13 sharded resume": [r[name] for r in sharded["launches_resume"]],
             "14 process group": sharded["launches_group"][name],
+            "16 direct API": engines["launches"][name],
         }
 
     # no PyTorch call computes an LCS, a ratio or a partial_ratio: library_ms is null
@@ -1406,7 +1718,9 @@ def main() -> int:
             "name": "lcs_ratio",
             "source": "mcaat_tpu_torch/csrc/lcs.cu",
             **common,
-            "launches": main_path["launches"]["lcs_ratio"],
+            # no pipeline path launches the per-pair kernel; its path is the
+            # public lcs_batch/ratio_batch, driven by phase 16
+            "launches": engines["launches"]["lcs_ratio"],
             "max_abs_err": stats["max_abs_err"],
             "ms": stats["ms"],
             "call_ms": stats["call_ms"],
@@ -1417,6 +1731,8 @@ def main() -> int:
             "ms_1m": stats["ms_1m"],
             "plain_ms_1m": stats["plain_ms_1m"],
             "bound_ms_1m": stats["bound_ms_1m"],
+            "measured_rate_bound": stats["measured_rate_bound"],
+            "measured_rate_bound_1m": stats["measured_rate_bound_1m"],
             "launches_in_phases": stats["launches_in_phases"],
             "launches_on_paths": on_paths("lcs_ratio"),
         },
@@ -1438,6 +1754,7 @@ def main() -> int:
             "expanded_lanes": pstats["expanded_lanes"],
             "expanded_kernel_ms": pstats["expanded_kernel_ms"],
             "expanded_kernel_bound_ms": pstats["expanded_kernel_bound_ms"],
+            "measured_rate_bound": pstats["measured_rate_bound"],
             "launches_on_paths": on_paths("partial_ratio"),
         },
         {
@@ -1462,11 +1779,17 @@ def main() -> int:
             "bound_ms_1m": mstats["bound_ms_1m"],
             "bound_ms_every_pair": mstats["bound_ms_every_pair"],
             "bound_ms_1m_every_pair": mstats["bound_ms_1m_every_pair"],
+            "measured_rate_bound": mstats["measured_rate_bound"],
+            "measured_rate_bound_1m": mstats["measured_rate_bound_1m"],
             "launches_on_paths": on_paths("ratio_matrix"),
         },
     ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
                          "report_call_ms": main_path["call_ms"],
                          "stages_s": main_path["stages"]},
+        "int_rate": {**int_rate, "assumed_peak_per_s": PEAK_INT_OPS_S},
+        "build_engines_planted_20x30": {
+            e: [{"seconds": sec, "peak_bytes": pk} for sec, pk in engines["runs"][e]]
+            for e in ("join", "inst")},
         "planted_20x30_4_shards": {k: sharded[k] for k in (
             "wall", "stages", "peak", "wire", "build_s", "build_peak", "single_build_s",
             "single_build_peak", "wire_build", "n_live", "resume_wall", "group_wall")}}))

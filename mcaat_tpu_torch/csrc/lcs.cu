@@ -35,7 +35,8 @@
 //
 // No pipeline path launches it since the report's all-pairs score has a
 // kernel of its own (ratio_matrix.cu), as partial_ratio has
-// (partial_ratio.cu); it serves the public ratio_batch.
+// (partial_ratio.cu); it serves the public ratio_batch (its ratio output)
+// and lcs_batch (its lcs output).
 
 #include "lcs_core.cuh"
 

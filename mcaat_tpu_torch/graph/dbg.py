@@ -1,8 +1,8 @@
 """De Bruijn graph as a structure of tensors over a sorted k-mer table.
 
 Port of ``mcaat_tpu/graph/dbg.py`` (the single-pass and the parted
-build, the single-shot and the chunked adjacency). The layout is the
-same:
+build, the single-shot and the chunked adjacency, both build engines and
+the three joins). The layout is the same:
 
 * ``kmers``  int64 ``[N]``  — sorted packed 23-mers; node id == rank.
 * ``mult``   int32 ``[N]``  — occurrence count (both strands with RC).
@@ -21,6 +21,7 @@ k-mers, ``valid=False``), which every query path masks out.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -31,8 +32,10 @@ from mcaat_tpu_torch.io.fastq import decode_kmer
 from mcaat_tpu_torch.kmer.count import (
     count_edges_parts,
     count_unique,
+    count_unique_with_ids,
     derive_nodes_from_edges,
     extract_first_kmer,
+    extract_kmers,
     extract_last_kmer,
     revcomp_kmers,
 )
@@ -168,6 +171,57 @@ def _lookup(table: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     return torch.where(found, idx_c, -1).to(torch.int32)
 
 
+def _join_ranks(table: torch.Tensor, queries: list) -> list:
+    """For each query array, the index of the last row of the sorted
+    ``table`` that is at or below each query (-1 when none is): one
+    stable sort of table and queries together. The table comes first in
+    the concatenation, so a stable sort puts a table row before the
+    queries equal to it, and the running count of table rows, less one,
+    lands on the matching row."""
+    T = table.shape[0]
+    so = torch.sort(torch.cat([table, *queries]), stable=True).indices
+    rank = torch.cumsum(so < T, 0) - 1
+    rank_orig = torch.empty_like(rank)
+    rank_orig[so] = rank
+    del so, rank
+    out, lo = [], T
+    for q in queries:
+        out.append(rank_orig[lo : lo + q.shape[0]])
+        lo += q.shape[0]
+    return out
+
+
+def _checked_hits(table: torch.Tensor, q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Ranks ``r`` of :func:`_join_ranks` as node ids: -1 unless the
+    table row at the rank holds the query (a miss, a SENTINEL query and a
+    SENTINEL-padded table tail all give -1)."""
+    T = table.shape[0]
+    if T == 0:
+        return torch.full(q.shape, -1, dtype=torch.int32, device=q.device)
+    rc = torch.clamp(r, 0, T - 1)
+    hit = (r >= 0) & (table[rc] == q) & (q != SENTINEL)
+    return torch.where(hit, rc, -1).to(torch.int32)
+
+
+def _join_lookup2(table: torch.Tensor, q1: torch.Tensor, q2: torch.Tensor):
+    """Ranks of two query arrays in a sorted unique table, one fused
+    sort-join: the adjacency build's two endpoint lookups share the node
+    table when no source ids came with the edges. Every hit is checked
+    against the table, so a prefix or suffix that is no node returns -1
+    (as do SENTINEL queries and SENTINEL-padded table tails)."""
+    r1, r2 = _join_ranks(table, [q1, q2])
+    return _checked_hits(table, q1, r1), _checked_hits(table, q2, r2)
+
+
+def _join_lookup1(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rank of one query array in a sorted unique table (sort-join), every
+    hit checked; misses and SENTINEL return -1. The checked form of
+    :func:`_join_lookup1_trusted`, taken by the adjacency's destination
+    join under ``MCAAT_VERIFY_ADJ=1``."""
+    (r,) = _join_ranks(table, [q])
+    return _checked_hits(table, q, r)
+
+
 def _join_lookup1_trusted(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Sort-join rank of queries known to be present in the sorted unique
     ``table`` (no hit check): the adjacency's destination join, where
@@ -211,13 +265,21 @@ def _degree(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _adjacency_scatter_chunk(
-    kmers23: torch.Tensor, edges24: torch.Tensor, u_id: torch.Tensor,
+    kmers23: torch.Tensor, edges24: torch.Tensor, u_id: torch.Tensor | None,
     out: torch.Tensor, in_: torch.Tensor, k: int = 23,
 ) -> None:
     """Join one chunk of the sorted unique (k+1)-mer table against the
     k-mer table and scatter it, in place, into the flat ``[4N+1]``
-    accumulators ``out``/``in_``. ``u_id`` is each edge's source node id
-    (from ``derive_nodes_from_edges``); only the destination joins.
+    accumulators ``out``/``in_``.
+
+    With ``u_id`` (each edge's source node id, from
+    ``derive_nodes_from_edges``) only the destination joins: by the
+    trusted join, since every live edge's suffix is a counted k-window of
+    the same build, or by the checked :func:`_join_lookup1` when the
+    environment sets ``MCAAT_VERIFY_ADJ``. Without ``u_id`` nothing is
+    known of the edge table, and both endpoints take the checked
+    two-sided :func:`_join_lookup2`; an edge with an endpoint that is no
+    node is dropped.
 
     Rows that are not live go to the dump slot ``4N``; each live
     (k+1)-mer maps to its own slot. Slots are int64 (``4N`` passes 2^31
@@ -227,7 +289,13 @@ def _adjacency_scatter_chunk(
     v = edges24 & mask_k  # last k bases
     last = edges24 & 3
     first = (edges24 >> (2 * k)) & 3
-    v_id = _join_lookup1_trusted(kmers23, v).to(torch.int64)
+    if u_id is None:
+        u_id, v_id = _join_lookup2(kmers23, (edges24 >> 2) & mask_k, v)
+    elif os.environ.get("MCAAT_VERIFY_ADJ"):
+        v_id = _join_lookup1(kmers23, v)
+    else:
+        v_id = _join_lookup1_trusted(kmers23, v)
+    v_id = v_id.to(torch.int64)
     u = u_id.to(torch.int64)
     ok = (edges24 != SENTINEL) & (u >= 0) & (v_id >= 0)
     dump = 4 * N
@@ -238,20 +306,22 @@ def _adjacency_scatter_chunk(
 def build_adjacency_chunked(
     kmers23: torch.Tensor,
     edges24: torch.Tensor,
-    u_id: torch.Tensor,
+    u_id: torch.Tensor | None = None,
     k: int = 23,
     chunk_edges: int | None = None,
 ):
     """Flat out/in adjacency ``[4N]`` from the unique (k+1)-mer table, in
     passes of at most ``chunk_edges`` edges (default
-    ``ADJ_SINGLE_SHOT_MAX_EDGES``; a table no larger goes in one pass).
+    ``ADJ_SINGLE_SHOT_MAX_EDGES``, half of it without ``u_id``, whose
+    two-sided join sorts two query rows an edge; a table no larger goes
+    in one pass).
 
     Each pass joins N + C rows instead of N + E, so the peak is the node
     table, one chunk's join and the two accumulators. Every pass sorts
     the node table again, so chunks should be as large as memory allows.
     Chunks of the sorted edge table keep each pass's out-slots sorted."""
     if chunk_edges is None:
-        chunk_edges = ADJ_SINGLE_SHOT_MAX_EDGES
+        chunk_edges = ADJ_SINGLE_SHOT_MAX_EDGES // (1 if u_id is not None else 2)
     N = kmers23.shape[0]
     E = int(edges24.shape[0])
     out = torch.full((4 * N + 1,), -1, dtype=torch.int32, device=kmers23.device)
@@ -259,20 +329,77 @@ def build_adjacency_chunked(
     step = max(int(chunk_edges), 1)
     for lo in range(0, E, step):
         _adjacency_scatter_chunk(
-            kmers23, edges24[lo : lo + step], u_id[lo : lo + step], out, in_, k=k
+            kmers23, edges24[lo : lo + step],
+            None if u_id is None else u_id[lo : lo + step], out, in_, k=k,
         )
     return out[: 4 * N], in_[: 4 * N]
+
+
+def _reverse_complement_batch(codes: torch.Tensor, lengths: torch.Tensor):
+    """Reverse-complement padded 2-bit code rows on the device (the pad
+    stays at the tail): ``(codes_rc, lengths)``."""
+    R, L = codes.shape
+    rev = torch.flip(3 - codes, dims=[1])
+    # after the flip each row's live bases sit at the tail; roll them to
+    # the front by the row's pad amount
+    col = torch.arange(L, device=codes.device, dtype=torch.int64)
+    src = torch.clamp(col[None, :] + (L - lengths.to(torch.int64))[:, None], max=max(L - 1, 0))
+    live = col[None, :] < lengths[:, None]
+    return torch.where(live, torch.gather(rev, 1, src), 0).to(torch.uint8), lengths
+
+
+def _adjacency_from_instances(
+    inst_id: torch.Tensor,  # int32 [R, W] node id of each k-window instance
+    codes: torch.Tensor,  # uint8 [R, L]
+    lengths: torch.Tensor,  # int32 [R]
+    n_keep: int,
+    k: int = 23,
+):
+    """Adjacency by direct instance scatters: no edge dedup, no join.
+
+    Consecutive k-window instances of a read are its (k+1)-mer edges, and
+    both endpoints of every observed edge are in the node table (each is
+    itself a counted window), so ``out[4*id(p) + base(p+k)] = id(p+1)``
+    per instance, and the mirror image for ``in_``. Dead instances go to
+    the dump slot ``4N``.
+
+    The stores rely on equal values: an edge seen many times is written
+    many times to one slot, always with the same id, so the result is
+    fixed whatever order the card takes. (Under
+    ``torch.use_deterministic_algorithms(True)`` an indexed store with
+    repeats becomes a sort; the function does not switch that mode on.)
+    Slots are int64, ids int32."""
+    R, W = inst_id.shape
+    dev = inst_id.device
+    out = torch.full((4 * n_keep + 1,), -1, dtype=torch.int32, device=dev)
+    in_ = torch.full((4 * n_keep + 1,), -1, dtype=torch.int32, device=dev)
+    if W >= 2:
+        pos = torch.arange(W - 1, device=dev, dtype=torch.int32)
+        live = pos[None, :] < (lengths[:, None] - k)  # window p+1 still in the read
+        u_id = inst_id[:, :-1]
+        v_id = inst_id[:, 1:]
+        dump = 4 * n_keep
+        slot = torch.where(live, u_id.to(torch.int64) * 4 + codes[:, k : k + W - 1], dump)
+        out[slot.reshape(-1)] = torch.where(live, v_id, -1).reshape(-1)
+        del slot
+        slot = torch.where(live, v_id.to(torch.int64) * 4 + codes[:, : W - 1], dump)
+        in_[slot.reshape(-1)] = torch.where(live, u_id, -1).reshape(-1)
+    return out[: 4 * n_keep], in_[: 4 * n_keep]
 
 
 def build_dbg(
     kmers23: torch.Tensor,
     counts23: torch.Tensor,
     edges24: torch.Tensor,
-    u_id: torch.Tensor,
+    u_id: torch.Tensor | None = None,
     k: int = 23,
 ) -> DBG:
-    """Assemble a DBG from the sorted unique k-mer table, its counts, the
-    sorted unique (k+1)-mer table and each edge's source node id.
+    """Assemble a DBG from the sorted unique k-mer table, its counts and
+    the sorted unique (k+1)-mer table (exact sizes; a SENTINEL edge row
+    is dead). With ``u_id``, each edge's source node id from
+    ``derive_nodes_from_edges``, only the destination joins, and by the
+    trusted join; without it both endpoints take the checked two-sided
+    join, so any edge table will do (:func:`_adjacency_scatter_chunk`).
 
     The adjacency goes in one pass up to ``ADJ_SINGLE_SHOT_MAX_EDGES``
     edges and in chunks of that size above it. (The JAX
@@ -324,12 +451,23 @@ SINGLE_PASS_MAX_WINDOWS = 1_100_000_000
 ADJ_SINGLE_SHOT_MAX_EDGES = 100_000_000
 
 
+# Single-pass build engine. "join": count the unique (k+1)-mers, derive
+# the nodes, sort-join the destinations (the pipeline's path, and the only
+# one with a parted build). "inst": scatter the adjacency straight from the
+# k-window sort's per-instance ids, with no (k+1)-mer dedup and no join.
+# The JAX package keeps "inst" off its path for a reason that is the
+# TPU's (its compiler serialises a scatter with repeated indices); PERF.md
+# has both engines' times on the H100.
+BUILD_ENGINE = "join"
+
+
 def build_dbg_from_reads(
     codes: np.ndarray,
     lengths: np.ndarray,
     k: int = 23,
     add_reverse_complement: bool = True,
     chunk_windows: int | None = None,
+    engine: str | None = None,
     verbose: bool = False,
     endpoints_out: dict | None = None,
     device: str | torch.device = "cuda",
@@ -347,6 +485,14 @@ def build_dbg_from_reads(
     uploaded on its own, counted, freed, and its table joins a merge
     stack. The adjacency is :func:`build_dbg`'s.
 
+    ``engine`` (``None`` means ``BUILD_ENGINE``) picks the formulation:
+    ``"join"`` as above, or ``"inst"``, which sorts the k-windows of both
+    strands once, keeps every instance's node id and scatters the
+    adjacency from consecutive instances
+    (:func:`_adjacency_from_instances`). Both give the same graph. Like
+    its JAX twin ``"inst"`` has no parted path and raises above the
+    single-pass budget.
+
     With ``endpoints_out`` (a dict) the build stashes each input row's
     FIRST/LAST packed k-window under ``first_km``/``last_km`` (int64
     ``[R]`` on the device, SENTINEL where len < k) for the read mapper's
@@ -358,6 +504,10 @@ def build_dbg_from_reads(
     _tick = tick_printer("build", verbose, dev)
     if chunk_windows is None:
         chunk_windows = SINGLE_PASS_MAX_WINDOWS
+    if engine is None:
+        engine = BUILD_ENGINE
+    if engine not in ("join", "inst"):
+        raise ValueError(f"engine must be 'join' or 'inst', not {engine!r}")
     codes_np = np.asarray(codes, dtype=np.uint8)
     lengths_np = np.asarray(lengths, dtype=np.int32)
     R, L = codes_np.shape
@@ -367,7 +517,17 @@ def build_dbg_from_reads(
     n_windows = R * w24 * strands
     rows = R
     if chunk_windows and n_windows > chunk_windows:
+        if engine == "inst":
+            raise ValueError(
+                f"engine='inst' has no chunked counting path: {n_windows} "
+                f"windows exceeds the {chunk_windows}-window single-pass "
+                "budget (use engine='join' or raise chunk_windows)"
+            )
         rows = max(chunk_windows // (max(w24, 1) * strands), 1)
+    if engine == "inst":
+        return _build_from_instances(
+            codes_np, lengths_np, k, add_reverse_complement, endpoints_out, dev, _tick
+        )
     bounds = [(lo, min(lo + rows, R)) for lo in range(0, max(R, 1), rows)]
 
     firsts: list[torch.Tensor] = []
@@ -406,3 +566,37 @@ def build_dbg_from_reads(
     graph = build_dbg(u23, c23, u24, u_id, k=k)
     _tick("adjacency")
     return graph
+
+
+def _build_from_instances(codes_np, lengths_np, k, add_rc, endpoints_out, dev, _tick) -> DBG:
+    """The "inst" engine of :func:`build_dbg_from_reads`: one pass, the
+    RC strand as real code rows (consecutive windows of a row must be
+    consecutive windows of a read, which the elementwise RC of the
+    forward windows is not)."""
+    codes_t = torch.as_tensor(codes_np, device=dev)
+    lengths_t = torch.as_tensor(lengths_np, device=dev)
+    if endpoints_out is not None:
+        # before the rows are doubled: they must align with the caller's
+        endpoints_out["first_km"] = extract_first_kmer(codes_t, lengths_t, k)
+        endpoints_out["last_km"] = extract_last_kmer(codes_t, lengths_t, k)
+    if add_rc:
+        codes_rc, lengths_rc = _reverse_complement_batch(codes_t, lengths_t)
+        codes_t = torch.cat([codes_t, codes_rc])
+        lengths_t = torch.cat([lengths_t, lengths_rc])
+        del codes_rc, lengths_rc
+    _tick("upload")
+    max_true = int(lengths_np.max()) if lengths_np.size else 0
+    R2, L = codes_t.shape
+    W = max(min(L, max_true) - k + 1, 0)
+    # the windows are handed over as a temporary: the count frees them
+    # as soon as they are sorted
+    u23, c23, n23, inst_id = count_unique_with_ids(
+        extract_kmers(codes_t, lengths_t, k, w_cap=W).reshape(-1)
+    )
+    _tick(f"window count with ids ({n23} nodes)")
+    out, in_ = _adjacency_from_instances(inst_id.reshape(R2, W), codes_t, lengths_t, n23, k=k)
+    _tick("adjacency")
+    return DBG(
+        k=k, kmers=u23, mult=c23, out=out, in_=in_,
+        valid=torch.ones(n23, dtype=torch.bool, device=dev),
+    )

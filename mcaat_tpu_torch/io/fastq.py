@@ -40,6 +40,23 @@ def _open_maybe_gzip(path: str):
     return open(path, "r")
 
 
+def read_sequences(path: str) -> list[str]:
+    """Parse FASTA or FASTQ (optionally gzipped) and return sequences.
+
+    Behavioral parity with ``extract_sequences_from_fastq_file``
+    (reference ``src/reads.cpp:3-18``): returns the sequence of every
+    record, in file order.
+    """
+    try:
+        from mcaat_tpu_torch.native import native_available, parse_fastx
+
+        if native_available():
+            return parse_fastx(path)
+    except ImportError:
+        pass
+    return _read_sequences_py(path)
+
+
 def _read_sequences_py(path: str) -> list[str]:
     try:
         with _open_maybe_gzip(path) as fh:

@@ -88,6 +88,45 @@ def count_unique(kmers_flat: torch.Tensor):
     return unique.clone(), counts.to(torch.int32), int(unique.shape[0])
 
 
+def count_unique_with_ids(kmers_flat: torch.Tensor):
+    """Like :func:`count_unique`, plus each instance's id in the unique
+    table: ``(unique_sorted, counts, n_unique, inst_id)``.
+
+    One stable sort with its index gives the sorted windows and where
+    each came from; the rank of every sorted position (the running count
+    of run heads) is scattered back through the index. ``inst_id`` is
+    int32 ``[n]`` in input order: the node id of a live window, and -1
+    for a SENTINEL window (the JAX function leaves those "an arbitrary
+    in-range id"; callers mask them either way). This is what lets the
+    "inst" build engine skip the (k+1)-mer dedup and the join
+    (``graph.dbg._adjacency_from_instances``).
+    """
+    n = kmers_flat.shape[0]
+    dev = kmers_flat.device
+    if n == 0:
+        return (
+            torch.zeros(0, dtype=torch.int64, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
+            0,
+            torch.zeros(0, dtype=torch.int32, device=dev),
+        )
+    s, so = torch.sort(kmers_flat, stable=True)
+    del kmers_flat  # frees the windows when the caller passed its only reference
+    is_head = torch.ones(n, dtype=torch.bool, device=dev)
+    is_head[1:] = s[1:] != s[:-1]
+    rank = torch.cumsum(is_head, 0, dtype=torch.int32) - 1
+    del is_head
+    n_live = int((s != SENTINEL).sum())  # SENTINEL sorts last
+    rank[n_live:] = -1
+    inst_id = torch.empty(n, dtype=torch.int32, device=dev)
+    inst_id[so] = rank  # ``so`` is a permutation: every slot written once
+    del so, rank  # the int64 index is the largest temporary here
+    unique, counts = torch.unique_consecutive(s[:n_live], return_counts=True)
+    del s
+    # the clone drops unique_consecutive's input-sized allocation
+    return unique.clone(), counts.to(torch.int32), int(unique.shape[0]), inst_id
+
+
 def extract_first_kmer(codes: torch.Tensor, lengths: torch.Tensor, k: int) -> torch.Tensor:
     """The first k-window of each read, packed int64 [R]; SENTINEL if len < k."""
     R, L = codes.shape
@@ -109,6 +148,28 @@ def extract_last_kmer(codes: torch.Tensor, lengths: torch.Tensor, k: int) -> tor
         c = torch.gather(codes, 1, col[:, None]).squeeze(1)
         acc = (acc << 2) | c.to(torch.int64)
     return torch.where(lengths >= k, acc, torch.full_like(acc, SENTINEL))
+
+
+def node_multiset_from_edges(km_k1_flat: torch.Tensor, last_k: torch.Tensor) -> torch.Tensor:
+    """The k-mer window multiset, derived from (k+1)-mer windows.
+
+    Every k-window of a read except the last is the prefix of a
+    (k+1)-window; the last k-window is appended separately. The counts
+    equal those of extracting the k-windows directly."""
+    pref = torch.where(km_k1_flat == SENTINEL, km_k1_flat, km_k1_flat >> 2)
+    return torch.cat([pref, last_k])
+
+
+def count_nodes_and_edges(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """One-extraction counting of k-mer nodes and (k+1)-mer edges.
+
+    Returns ``(u_k, c_k, n_k, u_k1, n_k1)``; the k-mer multiset is
+    derived from the (k+1)-mers (:func:`node_multiset_from_edges`)."""
+    km1 = extract_kmers(codes, lengths, k + 1).reshape(-1)
+    last = extract_last_kmer(codes, lengths, k)
+    u_k, c_k, n_k = count_unique(node_multiset_from_edges(km1, last))
+    u_k1, _c, n_k1 = count_unique(km1)
+    return u_k, c_k, n_k, u_k1, n_k1
 
 
 def _compact_counted_sorted(keys: torch.Tensor, cnts: torch.Tensor):

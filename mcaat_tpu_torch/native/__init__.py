@@ -165,6 +165,10 @@ def scc_components(indptr, indices, valid) -> "list[list[int]] | None":
     return comps
 
 
+def native_available() -> bool:
+    return _load() is not None
+
+
 def set_threads(n: int) -> None:
     """Bound the native library's OpenMP team (the packer's parallel-for)
     to ``n`` threads — ≙ the reference's omp_set_num_threads
@@ -230,6 +234,22 @@ def parse_fastx_batch(path: str):
         lib.mcaat_free(codes_p)
         lib.mcaat_free(lengths_p)
     return codes, lengths
+
+
+def parse_fastx(path: str) -> list[str]:
+    """Sequence strings via the native parser (decoded from 2-bit codes).
+
+    A non-ACGT character comes back as 'T' (the pipeline's coding).
+    Raises ImportError when the library is unavailable so callers fall
+    back."""
+    res = parse_fastx_batch(path)
+    if res is None:
+        raise ImportError("native library unavailable")
+    codes, lengths = res
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return [
+        lut[codes[i, : lengths[i]]].tobytes().decode("ascii") for i in range(codes.shape[0])
+    ]
 
 
 def enumerate_cycles(

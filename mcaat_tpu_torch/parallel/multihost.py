@@ -283,7 +283,8 @@ def run_pipeline_multihost(settings, verbose: bool = True,
     PipelineResult on process 0, None on the others.
 
     ``stats_out`` (a dict) is filled with the build's seconds, the rows
-    per shard, the stage times, the exchanged bytes per stage
+    per shard, the stages in order (``Profiler.to_json``'s list: name,
+    seconds, counters, host RSS, device peak), the exchanged bytes per stage
     (``wire``) and a SHA-1 of the node table; the hash gathers the k-mer
     column on every host, so it is for checks at test size only.
     """
@@ -375,7 +376,9 @@ def run_pipeline_multihost(settings, verbose: bool = True,
         map_sources=sources, profiler=prof,
     )
     if stats_out is not None:
-        stats_out["stages"] = {s.name: round(s.seconds, 3) for s in prof.stages}
+        import json
+
+        stats_out["stages"] = json.loads(prof.to_json())
         stats_out["wire"] = wire.snapshot()
     barrier(mesh)
     return result if pid == 0 else None

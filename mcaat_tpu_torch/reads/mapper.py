@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from mcaat_tpu_torch.graph.dbg import DBG, _lookup
-from mcaat_tpu_torch.io.fastq import ReadBatch
+from mcaat_tpu_torch.io.fastq import ReadBatch, encode_sequences
 from mcaat_tpu_torch.kmer.count import (
     extract_first_kmer,
     extract_kmers,
@@ -28,6 +28,53 @@ from mcaat_tpu_torch.kmer.count import (
     revcomp_kmers,
 )
 from mcaat_tpu_torch.reads.chains import Chains
+
+
+def map_reads_to_nodes(graph: DBG, batch: ReadBatch) -> tuple[np.ndarray, np.ndarray]:
+    """All window node-ids per read: ``ids[R, W]`` int32 (-1 miss) and
+    ``n_windows[i] = lengths[i] - k + 1`` live windows per read, both as
+    numpy, computed on the graph's device."""
+    if batch.num_reads == 0 or batch.max_len < graph.k:
+        return (
+            np.zeros((batch.num_reads, 0), dtype=np.int32),
+            np.zeros((batch.num_reads,), dtype=np.int32),
+        )
+    dev = graph.device
+    kmers = extract_kmers(
+        torch.as_tensor(np.ascontiguousarray(batch.codes, dtype=np.uint8), device=dev),
+        torch.as_tensor(np.asarray(batch.lengths, dtype=np.int32), device=dev),
+        graph.k,
+    )
+    ids = graph.lookup(kmers.reshape(-1)).reshape(kmers.shape)
+    n_windows = np.maximum(np.asarray(batch.lengths) - graph.k + 1, 0).astype(np.int32)
+    return ids.cpu().numpy(), n_windows
+
+
+def chains_from_ids(
+    ids: np.ndarray,
+    n_windows: np.ndarray,
+    lengths: np.ndarray,
+    k: int,
+    cycle_nodes: set[int],
+) -> Chains:
+    """Filter + materialize node chains (≙ get_read_from_sequence).
+
+    The keep predicate (first-or-last window node in the cycle set,
+    src/reads.cpp:74-76) is evaluated vectorized over all reads; only
+    the kept reads materialize, flat (``Chains``)."""
+    R = ids.shape[0]
+    if R == 0 or ids.shape[1] == 0:
+        return Chains.empty()
+    lengths = np.asarray(lengths)
+    n_windows = np.asarray(n_windows)
+    firsts = ids[:, 0]
+    lasts = ids[np.arange(R), np.clip(n_windows - 1, 0, ids.shape[1] - 1)]
+    cyc = np.fromiter(cycle_nodes, dtype=np.int64, count=len(cycle_nodes))
+    cyc.sort()
+    eligible = (lengths > 2 * k) & (n_windows > 0)
+    keep = eligible & (np.isin(firsts, cyc) | np.isin(lasts, cyc))
+    kept = np.nonzero(keep)[0]
+    return Chains.from_dense(ids[kept], n_windows[kept])
 
 
 def get_reads(
@@ -155,6 +202,18 @@ def _endpoint_keep_mask(cyc_kmers, codes, lengths, k: int):
     first_km = extract_first_kmer(codes, lengths, k)
     last_km = extract_last_kmer(codes, lengths, k)
     return _keep_from_endpoints(cyc_kmers, first_km, last_km, lengths, k)
+
+
+def _map_sequences(
+    graph: DBG,
+    sequences: list[str],
+    cycle_nodes: set[int],
+    chunk_reads: int = 1 << 20,
+) -> Chains:
+    """String-list convenience wrapper around :func:`_map_batch`."""
+    if not sequences:
+        return Chains.empty()
+    return _map_batch(graph, encode_sequences(sequences), cycle_nodes, chunk_reads)
 
 
 def _keep_from_endpoints(cyc_kmers, first_km, last_km, lengths, k: int):

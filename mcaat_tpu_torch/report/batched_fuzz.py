@@ -9,13 +9,14 @@ and repeats of at most 64 bases, so Hyyrö's bit-parallel LCS fits one
                     alignment window of the longer; the device expands
                     the windows from a table of the distinct strings.
 
-:func:`ratio_batch`, :func:`ratio_matrix` and
+:func:`lcs_batch`, :func:`ratio_batch`, :func:`ratio_matrix` and
 :func:`partial_ratio_table` dispatch on where their tensors live: CUDA
 tensors go to the hand-written kernels (``report/lcs_cuda.py``;
 ``csrc/lcs.cu``, ``csrc/ratio_matrix.cu``, ``csrc/partial_ratio.cu``),
-CPU tensors to the plain torch versions below (:func:`lcs_ratio_plain`,
-:func:`ratio_matrix_plain`, :func:`partial_ratio_table_plain`), which
-are also what the kernels are checked against.
+CPU tensors to the plain torch versions below (:func:`lcs_batch_plain`,
+:func:`lcs_ratio_plain`, :func:`ratio_matrix_plain`,
+:func:`partial_ratio_table_plain`), which are also what the kernels are
+checked against.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
-def lcs_batch(a_codes, a_lengths, b_codes, b_lengths) -> torch.Tensor:
+def lcs_batch_plain(a_codes, a_lengths, b_codes, b_lengths) -> torch.Tensor:
     """LCS length per lane, int32 [B]; plain torch on any device.
 
     ``a`` is the bit-parallel row (|a| ≤ 64). The 64-bit row is held as
@@ -106,11 +107,25 @@ def lcs_batch(a_codes, a_lengths, b_codes, b_lengths) -> torch.Tensor:
     return (la - ones).to(torch.int32)
 
 
+def lcs_batch(a_codes, a_lengths, b_codes, b_lengths) -> torch.Tensor:
+    """LCS length per lane, int32 [B]: the CUDA kernel's ``lcs`` output
+    for tensors on the card (``lcs_ratio_kernel`` writes the length
+    beside the ratio), the plain version for tensors on the CPU."""
+    dev = a_codes.device
+    if dev.type == "cuda":
+        from mcaat_tpu_torch.report.lcs_cuda import lcs_ratio_cuda
+
+        return lcs_ratio_cuda(a_codes, a_lengths, b_codes, b_lengths)[0]
+    if dev.type == "cpu":
+        return lcs_batch_plain(a_codes, a_lengths, b_codes, b_lengths)
+    raise ValueError(f"lcs_batch: unsupported device {dev}")
+
+
 def lcs_ratio_plain(a_codes, a_lengths, b_codes, b_lengths):
     """Plain torch ``(lcs int32 [B], ratio float32 [B])``: what the CUDA
     kernel computes, on any device. The ratio is the expression of
     pallas_dp.py:195-196, evaluated in the same order."""
-    lcs = lcs_batch(a_codes, a_lengths, b_codes, b_lengths)
+    lcs = lcs_batch_plain(a_codes, a_lengths, b_codes, b_lengths)
     total = (a_lengths + b_lengths).to(torch.float32)
     ratio = torch.where(
         total > 0, 200.0 * lcs.to(torch.float32) / total, torch.full_like(total, 100.0)

@@ -11,7 +11,11 @@ thread per row string. They share one register core
 command for ``sm_90a`` into one shared library with a plain C interface
 at first use (into ``build/mcaat_tpu_torch/``, named by the sources'
 hash so an edited source or header builds anew) and bound with
-``ctypes``. A failed build or a refused launch raises.
+``ctypes``. A failed build or a refused launch raises. The library also
+holds a measuring probe that is no port of anything
+(``csrc/int_rate.cu``, :func:`int_rate_probe`): the card's rate of 32-bit
+integer multiply-adds, which the smoke run prints beside the integer peak
+it assumes for the kernels' bounds.
 
 ``LAUNCHES``, ``PARTIAL_LAUNCHES`` and ``MATRIX_LAUNCHES`` count the
 launches of the three kernels, so that a run can show its main path went
@@ -129,6 +133,11 @@ def _load():
         lib.mcaat_ratio_matrix.restype = ctypes.c_int
         lib.mcaat_ratio_matrix.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.mcaat_int_rate.restype = ctypes.c_int
+        lib.mcaat_int_rate.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         _lib = lib
     return _lib
@@ -262,3 +271,28 @@ def ratio_matrix_cuda(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
     MATRIX_LAUNCHES += 1
     return out
+
+
+INT_RATE_THREADS = 256  # threads a block of int_rate_kernel (kThreads)
+INT_RATE_CHAINS = 8  # independent multiply-add chains a thread (kChains)
+
+
+def int_rate_probe(out: torch.Tensor, blocks: int, iters: int, mul: int = 1664525,
+                   add: int = 1013904223) -> int:
+    """Launch the integer-rate probe on ``out``'s card: every thread of
+    ``blocks`` blocks runs ``INT_RATE_CHAINS`` independent chains of
+    ``iters`` 32-bit multiply-adds and writes one word of ``out`` (int32
+    ``[blocks * INT_RATE_THREADS]``). Returns the multiply-adds executed.
+    Launches on the current stream and does not synchronise; it counts as
+    no kernel launch of the port."""
+    dev = out.device
+    if dev.type != "cuda":
+        raise ValueError(f"int_rate_probe takes a CUDA tensor, got {dev}")
+    _check("int_rate_probe", "out", out, torch.int32, (blocks * INT_RATE_THREADS,), dev, 4)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mcaat_int_rate(out.data_ptr(), blocks, mul, add, iters, stream)
+    if err != 0:
+        raise RuntimeError(f"int_rate_probe: launch failed with CUDA error {err}")
+    return blocks * INT_RATE_THREADS * INT_RATE_CHAINS * iters

@@ -29,6 +29,14 @@ and the parts, spills, adjacency passes, unique edge and node counts and
 the seconds of the build. A size that runs out of memory is recorded
 with the segment it ran out in, and the next one is tried.
 
+``--engine join|inst|both`` picks the build engine (default ``join``).
+For ``inst`` the count segment is the k-window sort with ids
+(``count_unique_with_ids``) and the adjacency segment the instance
+scatter (``_adjacency_from_instances``). ``both`` builds every size four
+times on the same reads, in turns (join, inst, inst, join), so that the
+two engines' seconds compare inside one call, and checks that the four
+graphs have the same node and edge counts.
+
 With ``--sharded N`` the same reads are built by
 ``mcaat_tpu_torch.parallel.sharded_graph.build_sharded_dbg`` on a mesh of
 N shards that all sit on this one card, so the peak is the sum of the
@@ -39,6 +47,7 @@ bytes that changed shard per stage. Run from the repository root:
     python3 scripts/torch_build_peaks.py 126e6:8 495e6:8 1.0e9:8 1.2e9:1.5
     python3 scripts/torch_build_peaks.py --parted 2.0e9:8 3.0e9:8 2.0e9:4
     python3 scripts/torch_build_peaks.py --sharded 4 126e6:8 495e6:8 1.1e9:8
+    python3 scripts/torch_build_peaks.py --engine both 126e6:8 495e6:8
 
 One JSON object per size goes to standard output, after a line with the
 card's name, power limit and memory.
@@ -125,19 +134,18 @@ def _note_merge(row, base, args, _out) -> None:
 
 def _note_adj(row, base, args, out) -> None:
     row["adj_base"] = base
-    row["nodes"], row["edges"] = int(args[0].shape[0]), int(args[2].shape[0])
 
 
-def measure(windows: float, coverage: float, parted: bool) -> dict:
+def measure(codes, lengths, coverage: float, parted: bool, engine: str = "join") -> dict:
     import torch
 
     from mcaat_tpu_torch.graph import dbg
     from mcaat_tpu_torch.kmer import count as kcount
 
     dev = torch.device("cuda", 0)
-    codes, lengths = reads_for(windows, coverage)
     row = {
         "mode": "parted" if parted else "single",
+        "engine": engine,
         "windows": int(codes.shape[0]) * 2 * (READ_LEN - K),
         "coverage": coverage,
         "reads": int(codes.shape[0]),
@@ -148,6 +156,9 @@ def measure(windows: float, coverage: float, parted: bool) -> dict:
         seg.wrap(kcount, "_merge_two", "merge", _note_merge),
         seg.wrap(kcount, "_spill", "spill"),
         seg.wrap(dbg, "build_dbg", "adj", _note_adj),
+        # the "inst" engine's two segments (graph/dbg.py binds both by name)
+        seg.wrap(dbg, "count_unique_with_ids", "count"),
+        seg.wrap(dbg, "_adjacency_from_instances", "adj", _note_adj),
     ]
     adj_max = dbg.ADJ_SINGLE_SHOT_MAX_EDGES
     if not parted:
@@ -157,12 +168,15 @@ def measure(windows: float, coverage: float, parted: bool) -> dict:
     t0 = time.perf_counter()
     try:
         g = dbg.build_dbg_from_reads(
-            codes, lengths, k=K, chunk_windows=None if parted else 0, device=dev
+            codes, lengths, k=K, chunk_windows=None if parted else 0, engine=engine,
+            device=dev,
         )
         torch.cuda.synchronize(dev)
         row["seconds"] = time.perf_counter() - t0
+        seg.leave()
         row["peak"] = max(v for key, v in row.items() if key.endswith("_peak"))
         row["bytes_per_window"] = row["peak"] / row["windows"]
+        row["nodes"], row["edges"] = g.size, int((g.out >= 0).sum())
         del g
     except torch.OutOfMemoryError as e:
         row["oom"] = str(e).splitlines()[0]
@@ -229,6 +243,14 @@ def main(argv: list[str]) -> int:
         return 1
     sys.path.insert(0, ROOT)
     parted = "--parted" in argv
+    engine = "join"
+    if "--engine" in argv:
+        i = argv.index("--engine")
+        engine = argv[i + 1]
+        argv = argv[:i] + argv[i + 2 :]
+        if engine not in ("join", "inst", "both"):
+            print("torch_build_peaks: --engine takes join, inst or both", file=sys.stderr)
+            return 1
     n_shards = 0
     if "--sharded" in argv:
         i = argv.index("--sharded")
@@ -245,10 +267,20 @@ def main(argv: list[str]) -> int:
         w, c = spec.split(":")
         if n_shards:
             row = measure_sharded(float(w), float(c), n_shards)
-        else:
-            row = measure(float(w), float(c), parted)
-        row.update(card=card, total_memory=total)
-        print(json.dumps(row), flush=True)
+            row.update(card=card, total_memory=total)
+            print(json.dumps(row), flush=True)
+            continue
+        codes, lengths = reads_for(float(w), float(c))
+        sizes = set()
+        for e in ("join", "inst", "inst", "join") if engine == "both" else (engine,):
+            row = measure(codes, lengths, float(c), parted, e)
+            row.update(card=card, total_memory=total)
+            print(json.dumps(row), flush=True)
+            if "nodes" in row:
+                sizes.add((row["nodes"], row["edges"]))
+        if len(sizes) > 1:
+            print(f"torch_build_peaks: the engines' graphs differ: {sizes}", file=sys.stderr)
+            return 1
     return 0
 
 

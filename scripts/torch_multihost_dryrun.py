@@ -220,7 +220,8 @@ def child() -> int:
         assert result is not None and result.report_text
         print(f"MULTIHOST PIPELINE OK pid=0: {len(result.found_systems)} systems")
         print(f"mesh {stats['mesh']}, rows per shard {stats['live_rows_per_shard']}, "
-              f"stages {stats['stages']}, device {dev}")
+              f"stages {[(st['name'], round(st['seconds'], 3), st['counters']) for st in stats['stages']]}, "
+              f"device {dev}")
         print(f"wire: {stats['wire']}")
     else:
         assert result is None

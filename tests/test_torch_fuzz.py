@@ -365,10 +365,11 @@ def test_build_covers_every_kernel_source():
     import os
 
     sources = sorted(os.path.basename(p) for p in glob.glob(os.path.join(lcs_cuda.SOURCE_DIR, "*.cu")))
-    assert sources == ["lcs.cu", "partial_ratio.cu", "ratio_matrix.cu"]
-    for src in sources:  # all three on the one register core
+    # the three kernels, and the integer-rate probe that is built with them
+    assert sources == ["int_rate.cu", "lcs.cu", "partial_ratio.cu", "ratio_matrix.cu"]
+    for src in sources:  # all three kernels on the one register core
         with open(os.path.join(lcs_cuda.SOURCE_DIR, src)) as fh:
-            assert '#include "lcs_core.cuh"' in fh.read()
+            assert ('#include "lcs_core.cuh"' in fh.read()) == (src != "int_rate.cu")
 
 
 def _table(strings):

@@ -152,3 +152,33 @@ def test_process_group_of_one_runs_the_distributed_path(tmp_path, monkeypatch):
     assert torch.int64 in calls and torch.uint8 in calls and torch.bool not in calls
     assert stats["wire"]["build_route"]["bytes"] > 0 and len(stats["live_rows_per_shard"]) == 4
     assert wire.snapshot() == stats["wire"]
+    _assert_stages_have_the_jax_shape(stats, s.input_files, tmp_path)
+
+
+def _assert_stages_have_the_jax_shape(stats, input_files, tmp_path):
+    """``stats_out["stages"]`` against what ``mcaat_tpu``'s entry gives on
+    the same input (one process, its 8 virtual CPU devices): the same
+    list of stages with the same counters, each entry with the JAX keys
+    plus the port's ``device_peak_mb``; ``wire`` in both, ``route_cap``
+    only in the JAX one (the port has no fixed capacities)."""
+    from mcaat_tpu.settings import Settings as JSettings
+
+    j_stats: dict = {}
+    jmh.run_pipeline_multihost(
+        JSettings(input_files=input_files, output_file=str(tmp_path / "jax_CRISPR_Arrays.txt")),
+        verbose=False, stats_out=j_stats,
+    )
+    assert isinstance(stats["stages"], list)
+    assert [st["name"] for st in stats["stages"]] == [st["name"] for st in j_stats["stages"]]
+    assert [st["name"] for st in stats["stages"]] == [
+        "parse_input", "graph_build", "cycle_search", "read_mapping", "spacer_ordering", "report",
+    ]
+    for t_st, j_st in zip(stats["stages"], j_stats["stages"]):
+        assert set(j_st) == {"name", "seconds", "counters", "rss_mb"}
+        assert set(t_st) == set(j_st) | {"device_peak_mb"}
+        assert t_st["counters"] == j_st["counters"], t_st["name"]
+        assert t_st["seconds"] > 0 and t_st["rss_mb"] > 1 and t_st["device_peak_mb"] is None
+    assert any(st["counters"] for st in stats["stages"])
+    assert set(j_stats) - set(stats) == {"route_cap"} and set(stats) <= set(j_stats)
+    assert stats["n_nodes"] == j_stats["n_nodes"]
+    assert stats["node_table_sha1"] == j_stats["node_table_sha1"]

@@ -94,7 +94,7 @@ def test_forced_threshold_metagenome_report_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("mesh,count,refused", [("auto", 2, True), ("off", 2, False), ("auto", 1, False)])
-def test_mesh_auto_refuses_more_than_one_card(mesh, count, refused, monkeypatch):
+def test_mesh_auto_takes_the_sharded_path_and_nothing_is_refused(mesh, count, refused, monkeypatch):
     """More than one visible card with --mesh auto used to be refused;
     it is now the one case that takes the sharded path (``refused`` names
     the cases that were), and nothing in the package refuses it."""
