@@ -91,7 +91,18 @@ Phases (any failure exits non-zero):
     ``lcs_batch`` on CUDA tensors (the per-pair kernel's length output)
     against ``lcs_batch_plain``, a golden fixture inside ``device_trace``
     (the Chrome trace names CUDA kernels), and ``Profiler.to_json`` of
-    phase 5's run.
+    phase 5's run;
+17. a 250-spacer array (``tests/torch_big_array.py``: one array of 250
+    spacers, 6,821 reads) through the CLI entry point: the report equals
+    the JAX-written ``tests/torch_data/big_array/CRISPR_Arrays.txt`` byte
+    for byte, ``ratio_matrix`` and ``partial_ratio`` are launched on a
+    table of at least 200 strings and held against their plain versions
+    on those inputs, and both are timed there with their bounds;
+18. the 1.03B-window sample of ``scripts/torch_e2e_big.py 400 62000000
+    10.4`` (6.59M reads, a 124.7M-node graph, 400 arrays of 6 spacers)
+    through the CLI entry point on the card: 400/400 systems, at least
+    98% of the spacers, an adjacency in more than one chunk, a device
+    peak under the card's memory, stage seconds printed.
 
 Each path after phase 6 reads its own launch counts (zeroed just before
 it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0; the
@@ -953,12 +964,15 @@ def main() -> int:
         pstats["expanded_lanes"] = int(old_in[0].shape[0])
         pstats["expanded_kernel_ms"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*old_in))
         pstats["expanded_kernel_bound_ms"], by = lcs_ratio_bound(old_in)
+        pstats["expanded_kernel_measured_rate_bound"] = lcs_ratio_bound(old_in, measured_int_rate())
         print(
             f"  largest system, {len(shorts)} pairs: partial_ratio_pairs "
             f"{pstats['wall_ms']:.3f} ms wall; the expanded route {pstats['expanded_wall_ms']:.3f} ms "
             f"wall over {pstats['expanded_lanes']} lanes (its per-pair kernel "
             f"{pstats['expanded_kernel_ms']:.5f} ms on the card, bound "
-            f"{pstats['expanded_kernel_bound_ms']:.6f} ms by {by}); equal bit for bit ({card})"
+            f"{pstats['expanded_kernel_bound_ms']:.6f} ms by {by}; at the measured integer rate "
+            f"{pstats['expanded_kernel_measured_rate_bound'][0]:.6f} ms by "
+            f"{pstats['expanded_kernel_measured_rate_bound'][1]}); equal bit for bit ({card})"
         )
         # the same for the all-pairs score of the largest system's spacers
         table = max(main_path["tables"], key=len)
@@ -1684,9 +1698,128 @@ def main() -> int:
         engines.pop("graph")
         engines.pop("batch")
 
+    array250: dict = {}
+
+    @phase("17 a 250-spacer array through python -m mcaat_tpu_torch")
+    def p17():
+        import torch_big_array  # tests/ is on sys.path
+
+        from mcaat_tpu_torch.cli import run_cli
+
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_array250_")
+        scratch.append(tmp)
+        fq, meta = torch_big_array.make_input(tmp)
+        seen: dict = {}
+        with lcs_run(lcs_cuda, seen) as lcs:
+            result, _text, wall = quiet_cli(run_cli, [
+                "--input-files", fq, "--output-folder", os.path.join(tmp, "out"), "--mesh", "off",
+            ], "cli_array250.log")
+        launches = lcs["launches"]
+        with open(os.path.join(tmp, "out", "CRISPR_Arrays.txt"), "rb") as fh:
+            report = fh.read()
+        if report != torch_big_array.expected_report():
+            fail("the 250-spacer array's CRISPR_Arrays.txt differs from "
+                 "tests/torch_data/big_array/CRISPR_Arrays.txt")
+        _arrays, spacers, found = recovery(meta, result.report_text)
+        need_launches("the 250-spacer array", launches)
+        tables = [int(x[0].shape[0]) for x in seen["ratio_matrix"]]
+        pairs = [(int(x[0].shape[0]), int(x[2].shape[0])) for x in seen["partial_ratio"]]
+        print(f"  report byte-identical to the JAX-written fixture; spacers recovered {found}/"
+              f"{len(spacers)}; wall {wall:.2f}s; launches {launches}")
+        print(f"  ratio_matrix strings {tables}; partial_ratio (strings, pairs) {pairs}")
+        print(result.profile.report())
+        if max(tables) < 200:
+            fail(f"the largest ratio_matrix table has {max(tables)} strings, not 200 or more")
+        hold_recorded(seen)
+        mbig = max(seen["ratio_matrix"], key=lambda x: x[0].shape[0])
+        pbig = max(seen["partial_ratio"], key=lambda x: x[2].shape[0])
+        n = int(mbig[0].shape[0])
+        m = {"strings": n, "batch": n * n}
+        m["ms"] = graph_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig))
+        m["call_ms"] = cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200)
+        m["plain_ms"] = cuda_ms(lambda: ratio_matrix_plain(*mbig), 5)
+        m["bound_ms"], m["bound_by"], m["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
+        m["measured_rate_bound"] = ratio_matrix_bound(mbig, measured_int_rate())[:2]
+        p = {"strings": int(pbig[0].shape[0]), "batch": int(pbig[2].shape[0])}
+        p["ms"] = graph_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig))
+        p["plain_ms"] = cuda_ms(lambda: partial_ratio_table_plain(*pbig), 5)
+        p["bound_ms"], p["bound_by"] = partial_ratio_bound(pbig)
+        p["measured_rate_bound"] = partial_ratio_bound(pbig, measured_int_rate())
+        print(
+            f"  ratio_matrix on {n} strings ({n * n} pairs): {m['ms']:.5f} ms on the card "
+            f"({m['call_ms']:.4f} ms a call from Python), plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.6f} ms by {m['bound_by']} ({m['bound_ms_every_pair']:.6f} ms with all "
+            f"n² pairs scored; at the measured integer rate {m['measured_rate_bound'][0]:.6f} ms) ({card})"
+        )
+        print(
+            f"  partial_ratio on {p['strings']} strings, P={p['batch']}: {p['ms']:.5f} ms on the card, "
+            f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.6f} ms by {p['bound_by']} ({card})"
+        )
+        array250.update(launches=launches, ratio_matrix=m, partial_ratio=p, wall=wall,
+                        spacers_found=found, tables=tables, pairs=pairs)
+
+    sample: dict = {}
+
+    @phase("18 the 1.03B-window sample (400 arrays) through python -m mcaat_tpu_torch")
+    def p18():
+        from mcaat_tpu_torch.cli import run_cli
+        from mcaat_tpu_torch.graph import dbg
+
+        # scripts/torch_e2e_big.py 400 62000000 10.4, the JAX package's
+        # recorded 1.03B-window size (E2E_1B_r5.json)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        meta = make_metagenome(
+            seed=7, n_arrays=400, n_spacers=6, background_len=62_000_000,
+            background_coverage=10.4, coverage=35.0,
+        )
+        gen_s = time.perf_counter() - t0
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_1b_")
+        scratch.append(tmp)
+        fq = os.path.join(tmp, "reads.fq")
+        t0 = time.perf_counter()
+        write_fastq(fq, meta["reads"])
+        write_s = time.perf_counter() - t0
+        n_reads = len(meta["reads"])
+        n_windows = 2 * n_reads * (len(meta["reads"][0]) - 23)
+        del meta["reads"]
+        print(f"  {n_reads} reads, {n_windows} windows with RC; generated in {gen_s:.1f}s, "
+              f"written in {write_s:.1f}s")
+        counts: dict = {}
+        with counting(dbg, "_adjacency_scatter_chunk", counts), lcs_run(lcs_cuda) as lcs:
+            result, _text, wall = quiet_cli(run_cli, [
+                "--input-files", fq, "--output-folder", os.path.join(tmp, "out"), "--mesh", "off",
+            ], "cli_1b.log")
+        chunks = counts["_adjacency_scatter_chunk"]
+        peak = result.profile.peak_device_mb() * 2**20
+        total = torch.cuda.get_device_properties(0).total_memory
+        nodes = next(st.counters["nodes"] for st in result.profile.stages if st.name == "graph_build")
+        arrays, spacers, found = recovery(meta, result.report_text)
+        systems = len(result.found_systems)
+        print(result.profile.report())
+        print(f"  graph nodes {nodes}, adjacency chunks {chunks}, wall {wall:.2f}s, "
+              f"{n_reads / wall:,.0f} reads/s, {n_windows / wall:,.0f} windows/s, device peak "
+              f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB ({card})")
+        print(f"  systems {systems}/{len(meta['arrays'])}, repeats reported {arrays}, spacers "
+              f"recovered {found}/{len(spacers)} (the JAX package's record: 2357/2400); launches "
+              f"{lcs['launches']} (6-spacer systems stay under the batched report's threshold)")
+        if systems != len(meta["arrays"]) or arrays != len(meta["arrays"]):
+            fail(f"{systems} systems and {arrays} repeats of {len(meta['arrays'])} planted arrays")
+        if found < 0.98 * len(spacers):
+            fail(f"only {found}/{len(spacers)} planted spacers recovered")
+        if chunks < 2:
+            fail(f"the adjacency went in {chunks} pass(es): the chunked adjacency did not run")
+        if peak >= total:
+            fail(f"device peak {peak} bytes is not under the card's {total}")
+        sample.update(wall_s=wall, n_reads=n_reads, n_windows=n_windows, nodes=nodes,
+                      adjacency_chunks=chunks, peak_bytes=peak, systems=systems,
+                      spacers_found=found, spacers=len(spacers), launches=lcs["launches"],
+                      generate_s=gen_s, write_s=write_s,
+                      stages_s={st.name: st.seconds for st in result.profile.stages})
+
     scratch: list = []
     sharded: dict = {}
-    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16]
+    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18]
     try:
         for i, run in enumerate(phases, start=1):
             if i not in skip:
@@ -1709,6 +1842,8 @@ def main() -> int:
             "13 sharded resume": [r[name] for r in sharded["launches_resume"]],
             "14 process group": sharded["launches_group"][name],
             "16 direct API": engines["launches"][name],
+            "17 250-spacer array": array250["launches"][name],
+            "18 1.03B-window sample": sample["launches"][name],
         }
 
     # no PyTorch call computes an LCS, a ratio or a partial_ratio: library_ms is null
@@ -1754,8 +1889,10 @@ def main() -> int:
             "expanded_lanes": pstats["expanded_lanes"],
             "expanded_kernel_ms": pstats["expanded_kernel_ms"],
             "expanded_kernel_bound_ms": pstats["expanded_kernel_bound_ms"],
+            "expanded_kernel_measured_rate_bound": pstats["expanded_kernel_measured_rate_bound"],
             "measured_rate_bound": pstats["measured_rate_bound"],
             "launches_on_paths": on_paths("partial_ratio"),
+            "array_250": array250["partial_ratio"],
         },
         {
             "name": "ratio_matrix",
@@ -1782,6 +1919,7 @@ def main() -> int:
             "measured_rate_bound": mstats["measured_rate_bound"],
             "measured_rate_bound_1m": mstats["measured_rate_bound_1m"],
             "launches_on_paths": on_paths("ratio_matrix"),
+            "array_250": array250["ratio_matrix"],
         },
     ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
                          "report_call_ms": main_path["call_ms"],
@@ -1792,7 +1930,9 @@ def main() -> int:
             for e in ("join", "inst")},
         "planted_20x30_4_shards": {k: sharded[k] for k in (
             "wall", "stages", "peak", "wire", "build_s", "build_peak", "single_build_s",
-            "single_build_peak", "wire_build", "n_live", "resume_wall", "group_wall")}}))
+            "single_build_peak", "wire_build", "n_live", "resume_wall", "group_wall")},
+        "array_250": {k: array250[k] for k in ("wall", "spacers_found", "tables", "pairs")},
+        "sample_1b": sample}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -180,6 +180,19 @@ def _self_reach_host(
     return False
 
 
+def _candidate_mask(out, in_, valid, mult, threshold_multiplicity: int) -> torch.Tensor:
+    """The static candidate predicate over the whole graph in one pass
+    (src/cycle_finder.cpp:398-411): valid, in-degree >= 2, multiplicity
+    above the threshold, no self-loop. The form :func:`candidate_ids`
+    (which gathers the slots of the cheap half's survivors only) is
+    tested against."""
+    from mcaat_tpu_torch.graph.dbg import _degree
+
+    ids = torch.arange(out.shape[0] // 4, device=out.device)
+    self_loop = (out.view(-1, 4).to(torch.int64) == ids[:, None]).any(dim=1)
+    return valid & (_degree(in_, valid) >= 2) & (mult > threshold_multiplicity) & ~self_loop
+
+
 def _precand_order(valid, mult, threshold_multiplicity: int):
     """The cheap half of the predicate (valid & mult > thr): the passing
     node ids in ascending order, and their count. (The JAX version

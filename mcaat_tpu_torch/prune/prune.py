@@ -35,6 +35,18 @@ def invalidate_low_multiplicity(graph: DBG) -> tuple[DBG, int]:
     return graph.set_invalid(kill), n
 
 
+def _clip_tips_fixpoint(out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-level reference fixpoint: drop every valid node of out-degree
+    0, again and again, until none is left. O(longest dead chain) passes,
+    so it is the semantic model :func:`clip_tips` is tested against, not
+    a pipeline path."""
+    while True:
+        tips = valid & (_degree(out, valid) == 0)
+        if not bool(tips.any()):
+            return valid
+        valid = valid & ~tips
+
+
 def _chain_collapse(out: torch.Tensor, valid: torch.Tensor, n_passes: int):
     """Pointer-double unary chains onto their terminals.
 

@@ -21,6 +21,7 @@ from mcaat_tpu.io.fastq import encode_sequences
 from mcaat_tpu.prune import prune as jprune
 from mcaat_tpu_torch.cycles import neighborhood as tnb
 from mcaat_tpu_torch.cycles import start_nodes as tsn
+from mcaat_tpu_torch.graph import dbg as tdbg
 from mcaat_tpu_torch.prune import prune as tprune
 from tests.synthetic import make_metagenome
 from tests.test_prune import make_graph
@@ -92,6 +93,45 @@ def test_clip_tips_matches_jax_and_fixpoint_random(seed):
     np.testing.assert_array_equal(_valid(tc), _valid(jc))
     fix = np.asarray(jprune._clip_tips_fixpoint(jg.out, jg.valid))
     np.testing.assert_array_equal(_valid(tc), fix)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_clip_tips_fixpoint_matches_jax(seed):
+    """The per-level fixpoint (tests/test_prune.py's model of clip_tips)
+    in both packages, on random graphs with random pre-invalidation."""
+    jg = _random_graph(seed, n=int(np.random.default_rng(seed).integers(5, 120)))
+    valid0 = np.random.default_rng(100 + seed).random(jg.size) > 0.2
+    jg = jg.with_valid(jg.valid & valid0)
+    tg = port_graph(jg)
+    want = np.asarray(jprune._clip_tips_fixpoint(jg.out, jg.valid))
+    got = tprune._clip_tips_fixpoint(tg.out, tg.valid)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(_valid(tprune.clip_tips(tg)[0]), want)
+
+
+@pytest.mark.parametrize("dense, thr", [(False, 10), (True, 1), (False, 50)])
+def test_candidate_mask_matches_jax_and_candidate_ids(dense, thr):
+    """The fused whole-graph predicate in both packages, and the port's
+    two-stage ``candidate_ids`` against it (tests/test_cycles.py's case
+    on random adjacency, self-loops included)."""
+    rng = np.random.default_rng(11 + thr)
+    n = int(rng.integers(500, 3000))
+    out = rng.integers(-1, n, size=4 * n).astype(np.int32)
+    in_ = rng.integers(-1, n, size=4 * n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    if dense:
+        mult = rng.integers(1, 40, size=n).astype(np.int32)
+    else:
+        mult = np.ones(n, np.int32)
+        mult[rng.choice(n, n // 20, replace=False)] = thr + 5
+    out[4 * 7 + 2] = 7  # a planted self-loop
+    mult[7], valid[7] = thr + 1, True
+    want = np.asarray(jsn._candidate_mask(out, in_, valid, mult, thr))
+    tg = tdbg.DBG.from_numpy(23, np.zeros(n, np.int64), mult, out, in_, valid, "cpu")
+    got = tsn._candidate_mask(tg.out, tg.in_, tg.valid, tg.mult, thr)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[7]
+    np.testing.assert_array_equal(tsn.candidate_ids(tg, thr), np.nonzero(want)[0])
 
 
 def test_candidates_match_jax(pruned):

@@ -2,6 +2,8 @@
 CPU: an input with no array, and an input file listed twice. Reports are
 compared byte for byte, tables exactly."""
 
+import os
+
 import numpy as np
 
 import mcaat_tpu.pipeline as jpipeline
@@ -52,3 +54,30 @@ def test_duplicate_input_file_doubles_multiplicity(tmp_path):
         JSettings(input_files=f"{fq} {fq}", output_file=str(tmp_path / "c.txt"))
     )
     assert_same_graph(g2, j2)
+
+
+def test_250_spacer_array_report_equals_jax_fixture(tmp_path, monkeypatch):
+    """The input of ``chip_smoke.py`` phase 17 (tests/torch_big_array.py:
+    one array of 250 spacers) through the port on the CPU: the report
+    equals the one the JAX package wrote, byte for byte, and the batched
+    report path scored its table of about 250 spacers in one call."""
+    from mcaat_tpu_torch.report import batched_fuzz
+    from tests import torch_big_array
+
+    # torch_big_array imports synthetic as chip_smoke.py does, from tests/
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.abspath(__file__)))
+    fq, meta = torch_big_array.make_input(str(tmp_path))
+    tables = []
+    matrix = batched_fuzz.pairwise_ratio_matrix
+
+    def spy(strings, device):
+        tables.append(len(strings))
+        return matrix(strings, device)
+
+    monkeypatch.setattr(batched_fuzz, "pairwise_ratio_matrix", spy)
+    got = tpipeline.run_pipeline(
+        Settings(input_files=fq, output_file=str(tmp_path / "t.txt")), verbose=False, device="cpu"
+    )
+    assert (tmp_path / "t.txt").read_bytes() == torch_big_array.expected_report()
+    assert len(got.found_systems) == 1 and len(meta["arrays"][0]["spacers"]) == 250
+    assert tables and max(tables) >= 200, tables

@@ -151,3 +151,83 @@ def test_ordered_systems_match_jax(single_end, condense):
     _, got = torch_ordering_step(tg, t_reads, cycles, verbose=False, condense_min_nodes=cmn)
     assert len(want) >= 1
     assert [vars(s) for s in got] == [vars(s) for s in want]
+
+
+def _random_consistent_graph(rng, n: int):
+    """tests/test_ordering.py's random graph with a consistent adjacency
+    (u in out[v] <=> v in in_[u]) and random validity, as numpy arrays."""
+    out = np.full((n, 4), -1, dtype=np.int32)
+    in_ = np.full((n, 4), -1, dtype=np.int32)
+    for v in range(n):
+        for b in range(int(rng.integers(0, 3))):
+            w = int(rng.integers(0, n))
+            free = np.nonzero(in_[w] < 0)[0]
+            if len(free):
+                out[v, b] = w
+                in_[w, free[0]] = v
+    return out, in_, rng.random(n) > 0.3
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_keep_crispr_regions_growth_paths_match(trial, monkeypatch):
+    """tests/test_ordering.py's case: the frontier growth (big graphs) and
+    the full-array growth give the same validity, in the port, and equal
+    the JAX package's on the same graph, cycles and hops."""
+    from mcaat_tpu.graph.dbg import DBG as JDBG
+    from mcaat_tpu_torch.graph.dbg import DBG as TDBG
+
+    rng = np.random.default_rng(9 + 1000 * trial)
+    n = int(rng.integers(200, 800))
+    out, in_, valid = _random_consistent_graph(rng, n)
+    cycles = [rng.integers(0, n, size=rng.integers(2, 6)).tolist() for _ in range(3)]
+    hops = int(rng.integers(1, 8))
+    jg = JDBG(k=23, kmers=jnp.zeros((n,), jnp.int64), mult=jnp.ones((n,), jnp.int32),
+              out=jnp.asarray(out.reshape(-1)), in_=jnp.asarray(in_.reshape(-1)),
+              valid=jnp.asarray(valid))
+    tg = TDBG.from_numpy(23, np.zeros(n, np.int64), np.ones(n, np.int32), out, in_, valid, "cpu")
+    got = {}
+    for name, thr in (("frontier", 1), ("full", 1 << 60)):
+        monkeypatch.setattr(tord, "GROW_FRONTIER_MIN_NODES", thr)
+        monkeypatch.setattr(jord, "GROW_FRONTIER_MIN_NODES", thr)
+        got[name] = tord.keep_crispr_regions_extended_by_k(tg, hops, cycles).valid.numpy()
+        want = np.asarray(jord.keep_crispr_regions_extended_by_k(jg, hops, cycles).valid)
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
+    np.testing.assert_array_equal(got["frontier"], got["full"])
+
+
+def test_host_region_growth_matches_device(monkeypatch):
+    """tests/test_ordering.py's case: the host growth over downloaded
+    adjacency equals keep_crispr_regions_extended_by_k's, and the split
+    entry takes the host tier when the thresholds allow; both packages,
+    the same graph."""
+    from mcaat_tpu.io.fastq import encode_sequences
+
+    rng = np.random.default_rng(29)
+    seqs = ["".join(rng.choice(list("ACGT"), size=80)) for _ in range(60)]
+    b = encode_sequences(seqs)
+    jg = jax_build(b.codes, b.lengths, k=23)
+    tg = port_graph(jg)
+    valid_ids = np.nonzero(np.asarray(jg.valid))[0]
+    cycles = [valid_ids[:5].tolist(), valid_ids[50:53].tolist()]
+    dev = tord.keep_crispr_regions_extended_by_k(tg, 7, cycles).valid.numpy()
+    np.testing.assert_array_equal(dev, np.asarray(jord.keep_crispr_regions_extended_by_k(jg, 7, cycles).valid))
+    h = tg.to_host()
+    seeds = np.unique(np.asarray(sorted({v for c in cycles for v in c}), dtype=np.int64))
+    reached = tord._region_mask_host_arrays(h.out, h.in_, h.valid, seeds, 7)
+    np.testing.assert_array_equal(h.valid & reached, dev)
+    np.testing.assert_array_equal(
+        reached,
+        jord._region_mask_host_arrays(np.asarray(jg.out).reshape(-1, 4),
+                                      np.asarray(jg.in_).reshape(-1, 4), np.asarray(jg.valid), seeds, 7),
+    )
+    monkeypatch.setattr(tord, "GROW_FRONTIER_MIN_NODES", 1)
+    monkeypatch.setattr(jord, "GROW_FRONTIER_MIN_NODES", 1)
+    host = []
+    monkeypatch.setattr(tord, "_region_mask_host_arrays",
+                        lambda *a, f=tord._region_mask_host_arrays: host.append(1) or f(*a))
+    t2, tsubs = tord.get_crispr_regions_extended_by_k(tg, 7, cycles)
+    j2, jsubs = jord.get_crispr_regions_extended_by_k(jg, 7, cycles)
+    assert host, "the split entry did not take the host tier"
+    np.testing.assert_array_equal(t2.valid.numpy(), dev)
+    np.testing.assert_array_equal(t2.valid.numpy(), np.asarray(j2.valid))
+    assert [(s.adjacency, s.nodes) for s in tsubs] == [(s.adjacency, s.nodes) for s in jsubs]
