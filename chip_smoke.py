@@ -102,7 +102,14 @@ Phases (any failure exits non-zero):
     10.4`` (6.59M reads, a 124.7M-node graph, 400 arrays of 6 spacers)
     through the CLI entry point on the card: 400/400 systems, at least
     98% of the spacers, an adjacency in more than one chunk, a device
-    peak under the card's memory, stage seconds printed.
+    peak under the card's memory, stage seconds printed;
+19. the one-shard-a-card count budget: phase 18's reads built with
+    ``build_sharded_dbg`` in a world-size-1 NCCL group with one shard on
+    the card, so the distributed exchange runs at the default
+    ``SHARDED_COUNT_SHARD_ROWS``; k-mers, multiplicities and both
+    adjacencies equal the single-device build's; the count parts' peak,
+    the part count and the bytes a count row (beside the 65 reckoned)
+    printed.
 
 Each path after phase 6 reads its own launch counts (zeroed just before
 it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0; the
@@ -1811,15 +1818,114 @@ def main() -> int:
             fail(f"the adjacency went in {chunks} pass(es): the chunked adjacency did not run")
         if peak >= total:
             fail(f"device peak {peak} bytes is not under the card's {total}")
+        big["fq"] = fq  # phase 19 builds the same reads
         sample.update(wall_s=wall, n_reads=n_reads, n_windows=n_windows, nodes=nodes,
                       adjacency_chunks=chunks, peak_bytes=peak, systems=systems,
                       spacers_found=found, spacers=len(spacers), launches=lcs["launches"],
                       generate_s=gen_s, write_s=write_s,
                       stages_s={st.name: st.seconds for st in result.profile.stages})
 
+    budget: dict = {}
+
+    @phase("19 the one-shard-a-card count budget: one shard, nccl, world size 1, phase 18's reads")
+    def p19():
+        import torch.distributed as dist
+
+        from mcaat_tpu_torch.graph import dbg
+        from mcaat_tpu_torch.io.fastq import read_encoded_batch
+        from mcaat_tpu_torch.parallel import multihost, sharded_graph
+
+        torch.cuda.empty_cache()
+        batch = read_encoded_batch(big["fq"])
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_budget_")
+        scratch.append(tmp)
+        calls: dict = {}
+        rows: list = []
+        peaks: dict = {}
+        count_unique, drain = sharded_graph.count_unique, sharded_graph._merge_stack_drain
+        adjacency = sharded_graph._sharded_adjacency
+
+        def mark(name: str) -> None:  # the peak since the last mark, then a fresh one
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - peaks["base"]
+            torch.cuda.reset_peak_memory_stats()
+
+        def counted(x):  # one shard's count input of one row part
+            rows.append(int(x.numel()))
+            return count_unique(x)
+
+        def drained(*a):
+            if "count" not in peaks:
+                mark("count")
+            return drain(*a)
+
+        def adjacent(*a):
+            mark("nodes")
+            out = adjacency(*a)
+            mark("adjacency")
+            return out
+
+        with shards(1), counting(dist, "all_to_all_single", calls):
+            multihost.initialize_distributed(
+                f"file://{os.path.join(tmp, 'store')}", 1, 0, device=device, timeout_s=300
+            )
+            sharded_graph.count_unique, sharded_graph._merge_stack_drain = counted, drained
+            sharded_graph._sharded_adjacency = adjacent
+            try:
+                mesh = multihost.make_global_mesh(device)
+                if not mesh.distributed or mesh.shape != {"dp": 1, "kp": 1}:
+                    fail(f"phase 19's mesh is {mesh.shape}, distributed {mesh.distributed}")
+                torch.cuda.synchronize()
+                peaks["base"] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                sg = sharded_graph.build_sharded_dbg(mesh, batch.codes, batch.lengths, add_rc=True)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+            finally:
+                sharded_graph.count_unique, sharded_graph._merge_stack_drain = count_unique, drain
+                sharded_graph._sharded_adjacency = adjacency
+                dist.destroy_process_group()
+        if calls["all_to_all_single"] == 0:
+            fail("phase 19's build made no torch.distributed exchange")
+        kmers, mult, out, in_ = sg.kmers[0], sg.mult[0], sg.out[0], sg.in_[0]
+        n_parts, T = sg.n_parts, sg.T
+        del sg
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = dbg.build_dbg_from_reads(batch.codes, batch.lengths, device=device)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        # one shard: global ids are the single-device ids
+        for name, mine, ref in (("k-mers", kmers, one.kmers), ("multiplicities", mult, one.mult),
+                                ("out-adjacency", out, one.out), ("in-adjacency", in_, one.in_)):
+            if not torch.equal(mine, ref):
+                fail(f"the one-shard distributed build's {name} differ from the single-device "
+                     "build's")
+        del one, kmers, mult, out, in_
+        torch.cuda.empty_cache()
+        per_row = peaks["count"] / max(rows)
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  {T} nodes in {n_parts} count parts (budget "
+              f"{sharded_graph.SHARDED_COUNT_SHARD_ROWS} rows a part); the largest count input "
+              f"{max(rows)} rows; build {build_s:.2f}s, single-device build {single_s:.2f}s; "
+              f"k-mers, multiplicities and both adjacencies equal")
+        print(f"  peaks above the start: count parts {peaks['count'] / 2**30:.2f} GiB, node "
+              f"table {peaks['nodes'] / 2**30:.2f} GiB, adjacency "
+              f"{peaks['adjacency'] / 2**30:.2f} GiB of {total / 2**30:.2f} GiB; "
+              f"{per_row:.1f} bytes a count row against the 65 reckoned "
+              f"({calls['all_to_all_single']} all_to_all_single calls) ({card})")
+        if n_parts < 2:
+            fail(f"the budget cut {n_parts} part(s): the count ran at no part's budget")
+        budget.update(nodes=T, n_parts=n_parts, count_rows=max(rows), build_s=build_s,
+                      single_build_s=single_s, bytes_per_count_row=per_row,
+                      peaks_bytes={k: v for k, v in peaks.items() if k != "base"})
+
     scratch: list = []
     sharded: dict = {}
-    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18]
+    big: dict = {}
+    phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18,
+              p19]
     try:
         for i, run in enumerate(phases, start=1):
             if i not in skip:
@@ -1932,7 +2038,7 @@ def main() -> int:
             "wall", "stages", "peak", "wire", "build_s", "build_peak", "single_build_s",
             "single_build_peak", "wire_build", "n_live", "resume_wall", "group_wall")},
         "array_250": {k: array250[k] for k in ("wall", "spacers_found", "tables", "pairs")},
-        "sample_1b": sample}))
+        "sample_1b": sample, "one_shard_count_budget": budget}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -220,12 +220,7 @@ def read_host_shard(path: str, process_id: int, num_processes: int):
     ``process_id::num_processes`` (gzip streams are not seekable; IO is
     replicated but memory is not).
     """
-    from mcaat_tpu_torch.io.fastq import (
-        ReadBatch,
-        encode_sequences,
-        parse_fastx_chunk,
-        read_encoded_batch,
-    )
+    from mcaat_tpu_torch.io.fastq import ReadBatch, encode_fastx_chunk, read_encoded_batch
 
     if num_processes <= 1:
         return read_encoded_batch(path)
@@ -238,7 +233,7 @@ def read_host_shard(path: str, process_id: int, num_processes: int):
         fh.seek(lo)
         chunk = fh.read(hi - lo)
     # byte ranges are record-aligned, so a chunk is just a smaller file
-    return encode_sequences(parse_fastx_chunk(chunk))
+    return encode_fastx_chunk(chunk)
 
 
 def host_local_rows_to_global(mesh: Mesh, codes: np.ndarray, lengths: np.ndarray):

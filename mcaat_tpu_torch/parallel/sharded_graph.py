@@ -151,11 +151,12 @@ def _kp_ints(mesh: Mesh, vals: list[int]) -> np.ndarray:
 # one card a one-part build peaks at 18.85 bytes per window of the whole
 # input, which is 75 bytes per row of one shard's count input with all
 # four shards' send and receive buffers beside it (the single-device
-# count's sort alone is 48.8-49.0). At one shard a card that is at most
-# 65 bytes a row (sort, send buffer, received rows), so 800M rows stay
-# near 52 GB, 61% of the card, and leave room for the resident merge-stack
-# parts. Several shards on one card share it: divide by their number
-# (``MCAAT_COUNT_SHARD_ROWS``).
+# count's sort alone is 48.8-49.0). At one shard a card, through the
+# distributed exchange (its send and receive buffers on the card), a part
+# of 800M rows peaked at 36.44 GiB, 48.9 bytes a row, where 65 had been
+# reckoned (chip_smoke.py phase 19, the same card), so 800M rows leave
+# room for the resident merge-stack parts. Several shards on one card
+# share it: divide by their number (``MCAAT_COUNT_SHARD_ROWS``).
 SHARDED_COUNT_SHARD_ROWS = 800_000_000
 
 
@@ -451,16 +452,26 @@ def tag_adjacency(mesh: Mesh, adj: list, valid: list, T: int) -> list:
     pointing at an invalid node becomes ``-2 - g`` (recoverable), valid
     targets stay ``g``, absent stays ``-1``.
 
-    ONE routed exchange of the 4N entries per validity epoch; afterwards
-    every BFS and candidate consumer reads neighbour validity locally
-    from the tag. A DBG node has at most 4 in-edges, so each target id
-    appears at most 4 times over the whole out-adjacency.
+    ONE routed exchange per validity epoch; afterwards every BFS and
+    candidate consumer reads neighbour validity locally from the tag. A
+    DBG node has at most 4 in-edges, so each target id appears at most 4
+    times over the whole out-adjacency.
+
+    Only the present entries are routed (about one slot in four of a
+    de Bruijn graph): the route's stable sort keeps an int64 index and
+    sort buffers for every entry it is given, which for all 4N slots of a
+    shard of 349M nodes asked for 15.67 GiB beside 46.20 GiB in use and
+    ran out of memory on an 80 GB H100.
     """
-    ok = _routed_value_gather(mesh, valid, adj, T, False, "tag_adjacency")
-    return [
-        torch.where(a < 0, -1, torch.where(o, a, -2 - a)).to(torch.int32)
-        for a, o in zip(adj, ok)
-    ]
+    slots = [torch.nonzero(a >= 0).flatten() for a in adj]
+    present = [a[s] for a, s in zip(adj, slots)]
+    ok = _routed_value_gather(mesh, valid, present, T, False, "tag_adjacency")
+    tagged = []
+    for a, s, p, o in zip(adj, slots, present, ok):
+        t = torch.full_like(a, -1)
+        t[s] = torch.where(o, p, -2 - p).to(torch.int32)
+        tagged.append(t)
+    return tagged
 
 
 def decode_tagged(adj: torch.Tensor) -> torch.Tensor:
