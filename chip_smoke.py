@@ -109,12 +109,30 @@ Phases (any failure exits non-zero):
     ``SHARDED_COUNT_SHARD_ROWS``; k-mers, multiplicities and both
     adjacencies equal the single-device build's; the count parts' peak,
     the part count and the bytes a count row (beside the 65 reckoned)
-    printed.
+    printed;
+20. planted-20x30-err-pe (``tests/torch_reads.py``: planted-20x30's reads
+    with 0.5% substitutions a base, as two mate files, mate 2
+    reverse-complemented) through the CLI entry point in one pass, in row
+    parts (``--ram``), on 4 shards of the card (``--mesh auto``) and
+    gzipped: the four reports byte-identical, every array, at least 95%
+    of the spacers, 20 launches each of ``ratio_matrix`` and
+    ``partial_ratio`` held against their plain versions (and timed on the
+    largest table), nodes, unique (k+1)-mers, device peak per window and
+    per node, adjacency chunks, mate 2's reverse complement and the
+    ordering pool's seconds printed;
+21. planted-20x30-err-pe-1M: the input's SHA-1 against the committed one
+    first, then the report against the JAX-written
+    ``tests/torch_data/err_pe_1M/CRISPR_Arrays.txt``, byte for byte;
+22. sample-1.03B-err-pe: phase 18's reads with 0.5% substitutions, as two
+    mates, through the CLI entry point: every system, at least 95% of the
+    spacers, the device peak under the card's memory, the adjacency
+    chunks and the bytes a window and a node printed.
 
 Each path after phase 6 reads its own launch counts (zeroed just before
-it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0; the
-kernels' inputs on phases 8, 10 and 12 are held against the plain
-versions too. The per-pair kernel serves the public ``ratio_batch`` and
+it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0 (phases 18
+and 22, whose 6-spacer systems stay under the batched report, print
+theirs); the kernels' inputs on phases 8, 10, 12, 20 and 21 are held
+against the plain versions too. The per-pair kernel serves the public ``ratio_batch`` and
 ``lcs_batch`` and no pipeline path: phases 3 and 6 launch it, and fail
 when they did not, and phase 16 drives ``lcs_batch`` with the counts
 zeroed just before and fails when the kernel was not launched. Phase 3
@@ -402,6 +420,35 @@ def recovery(meta, report: str):
     return arrays, spacers, found
 
 
+def reported_repeats(report: str) -> list:
+    """The repeat of every system of a ``CRISPR_Arrays.txt``: the line
+    between the two dashed lines that open the system."""
+    lines = report.splitlines()
+    dash = "-" * 50
+    return [
+        lines[i] for i in range(1, len(lines) - 1)
+        if lines[i - 1] == dash and lines[i + 1] == dash and lines[i]
+        and set(lines[i]) <= set("ACGT")
+    ]
+
+
+def arrays_with_a_system(meta, report: str) -> int:
+    """Planted arrays that a reported system's repeat shares a k-mer (23
+    bases) with, on either strand. On error-free reads the reported repeat
+    is the planted one less its last base; on reads with substitutions the
+    reference (and the port with it) may place a repeat's ends a base or
+    two off, taking a base of the next spacer or dropping one more."""
+    from mcaat_tpu_torch.io.fastq import reverse_complement
+
+    kmers = {r[i : i + 23] for r in reported_repeats(report) for i in range(len(r) - 22)}
+    return sum(
+        1 for a in meta["arrays"]
+        if any(a["repeat"][i : i + 23] in kmers
+               or reverse_complement(a["repeat"])[i : i + 23] in kmers
+               for i in range(len(a["repeat"]) - 22))
+    )
+
+
 KERNELS = {
     "lcs_ratio": "lcs_ratio_cuda",
     "partial_ratio": "partial_ratio_cuda",
@@ -508,6 +555,15 @@ def main() -> int:
         import mcaat_tpu_torch  # noqa: F401
         from synthetic import make_metagenome, write_fastq
         from torch_fuzz_windows import edge_pairs, expanded_partial_ratio, rand_dna
+        from torch_probes import probe_pipeline
+        from torch_reads import (
+            INPUTS,
+            SAMPLE_1B,
+            add_substitutions,
+            metagenome_matrix,
+            write_fastq_matrix,
+            write_reads,
+        )
     except ImportError as e:
         fail(f"the repository is not beside chip_smoke.py ({e})")
     os.environ["MCAAT_TORCH_DEVICE"] = "cuda"
@@ -814,6 +870,7 @@ def main() -> int:
                 stack.enter_context(counting(tfuzz, "partial_ratio_pairs", parts))
                 stack.enter_context(counting(tfuzz, "pairwise_ratio_matrix", parts))
                 lcs = stack.enter_context(lcs_run(lcs_cuda, seen))
+                probe = stack.enter_context(probe_pipeline())
                 result, _text, wall = quiet_cli(run_cli, [
                     "--input-files", fq, "--output-folder", os.path.join(tmp, "out"),
                     "--mesh", "off",
@@ -839,6 +896,11 @@ def main() -> int:
             f"  arrays reported {arrays}/{len(meta['arrays'])}, spacers "
             f"recovered {found}/{len(spacers)}, launches {launches}"
         )
+        n_windows = 2 * sum(len(r) - 23 for r in meta["reads"])
+        print(f"  unique (k+1)-mers {probe['unique_edges']}, device peak "
+              f"{peak / n_windows:.2f} B a window and {peak / nodes:.1f} B a node; "
+              f"ordering pool {probe['ordering_pool_s']:.2f}s over {probe['subproblems']} "
+              f"subproblems, {sum(probe['cycles_per_subproblem'])} cycles")
         print(
             f"  lcs_ratio batch sizes {[int(x[0].shape[0]) for x in seen.get('lcs_ratio', [])]}; "
             f"ratio_matrix strings {[int(x[0].shape[0]) for x in seen.get('ratio_matrix', [])]}; "
@@ -1738,31 +1800,8 @@ def main() -> int:
         if max(tables) < 200:
             fail(f"the largest ratio_matrix table has {max(tables)} strings, not 200 or more")
         hold_recorded(seen)
-        mbig = max(seen["ratio_matrix"], key=lambda x: x[0].shape[0])
-        pbig = max(seen["partial_ratio"], key=lambda x: x[2].shape[0])
-        n = int(mbig[0].shape[0])
-        m = {"strings": n, "batch": n * n}
-        m["ms"] = graph_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig))
-        m["call_ms"] = cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200)
-        m["plain_ms"] = cuda_ms(lambda: ratio_matrix_plain(*mbig), 5)
-        m["bound_ms"], m["bound_by"], m["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
-        m["measured_rate_bound"] = ratio_matrix_bound(mbig, measured_int_rate())[:2]
-        p = {"strings": int(pbig[0].shape[0]), "batch": int(pbig[2].shape[0])}
-        p["ms"] = graph_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig))
-        p["plain_ms"] = cuda_ms(lambda: partial_ratio_table_plain(*pbig), 5)
-        p["bound_ms"], p["bound_by"] = partial_ratio_bound(pbig)
-        p["measured_rate_bound"] = partial_ratio_bound(pbig, measured_int_rate())
-        print(
-            f"  ratio_matrix on {n} strings ({n * n} pairs): {m['ms']:.5f} ms on the card "
-            f"({m['call_ms']:.4f} ms a call from Python), plain {m['plain_ms']:.4f} ms, bound "
-            f"{m['bound_ms']:.6f} ms by {m['bound_by']} ({m['bound_ms_every_pair']:.6f} ms with all "
-            f"n² pairs scored; at the measured integer rate {m['measured_rate_bound'][0]:.6f} ms) ({card})"
-        )
-        print(
-            f"  partial_ratio on {p['strings']} strings, P={p['batch']}: {p['ms']:.5f} ms on the card, "
-            f"plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.6f} ms by {p['bound_by']} ({card})"
-        )
-        array250.update(launches=launches, ratio_matrix=m, partial_ratio=p, wall=wall,
+        timed = time_tables(seen)
+        array250.update(launches=launches, wall=wall, **timed,
                         spacers_found=found, tables=tables, pairs=pairs)
 
     sample: dict = {}
@@ -1770,40 +1809,39 @@ def main() -> int:
     @phase("18 the 1.03B-window sample (400 arrays) through python -m mcaat_tpu_torch")
     def p18():
         from mcaat_tpu_torch.cli import run_cli
-        from mcaat_tpu_torch.graph import dbg
 
         # scripts/torch_e2e_big.py 400 62000000 10.4, the JAX package's
         # recorded 1.03B-window size (E2E_1B_r5.json)
         torch.cuda.empty_cache()
+        # make_metagenome + write_fastq's bytes, written from a byte matrix
+        # that phase 22 adds its errors to
         t0 = time.perf_counter()
-        meta = make_metagenome(
-            seed=7, n_arrays=400, n_spacers=6, background_len=62_000_000,
-            background_coverage=10.4, coverage=35.0,
-        )
+        arrays, reads = metagenome_matrix(**SAMPLE_1B)
+        meta = {"arrays": arrays}
         gen_s = time.perf_counter() - t0
         tmp = tempfile.mkdtemp(prefix="mcaat_smoke_1b_")
         scratch.append(tmp)
         fq = os.path.join(tmp, "reads.fq")
         t0 = time.perf_counter()
-        write_fastq(fq, meta["reads"])
+        write_fastq_matrix(fq, reads)
         write_s = time.perf_counter() - t0
-        n_reads = len(meta["reads"])
-        n_windows = 2 * n_reads * (len(meta["reads"][0]) - 23)
-        del meta["reads"]
+        n_reads, read_len = reads.shape
+        n_windows = 2 * n_reads * (read_len - 23)
+        held["sample_1b"] = (arrays, reads)
         print(f"  {n_reads} reads, {n_windows} windows with RC; generated in {gen_s:.1f}s, "
               f"written in {write_s:.1f}s")
-        counts: dict = {}
-        with counting(dbg, "_adjacency_scatter_chunk", counts), lcs_run(lcs_cuda) as lcs:
+        with probe_pipeline() as probe, lcs_run(lcs_cuda) as lcs:
             result, _text, wall = quiet_cli(run_cli, [
                 "--input-files", fq, "--output-folder", os.path.join(tmp, "out"), "--mesh", "off",
             ], "cli_1b.log")
-        chunks = counts["_adjacency_scatter_chunk"]
+        chunks = probe["adjacency_chunks"]
+        # the error-free figures beside phase 22's
+        figures = path_figures("sample-1.03B", result, probe, wall, n_reads, n_windows)
         peak = result.profile.peak_device_mb() * 2**20
         total = torch.cuda.get_device_properties(0).total_memory
         nodes = next(st.counters["nodes"] for st in result.profile.stages if st.name == "graph_build")
         arrays, spacers, found = recovery(meta, result.report_text)
         systems = len(result.found_systems)
-        print(result.profile.report())
         print(f"  graph nodes {nodes}, adjacency chunks {chunks}, wall {wall:.2f}s, "
               f"{n_reads / wall:,.0f} reads/s, {n_windows / wall:,.0f} windows/s, device peak "
               f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB ({card})")
@@ -1822,7 +1860,7 @@ def main() -> int:
         sample.update(wall_s=wall, n_reads=n_reads, n_windows=n_windows, nodes=nodes,
                       adjacency_chunks=chunks, peak_bytes=peak, systems=systems,
                       spacers_found=found, spacers=len(spacers), launches=lcs["launches"],
-                      generate_s=gen_s, write_s=write_s,
+                      generate_s=gen_s, write_s=write_s, figures=figures,
                       stages_s={st.name: st.seconds for st in result.profile.stages})
 
     budget: dict = {}
@@ -1921,11 +1959,244 @@ def main() -> int:
                       single_build_s=single_s, bytes_per_count_row=per_row,
                       peaks_bytes={k: v for k, v in peaks.items() if k != "base"})
 
+    def error_reads(name: str, reads=None):
+        """The reads of ``torch_reads.INPUTS[name]`` with its substitutions
+        (on ``reads``, the clean matrix of its call, when a phase already
+        made it): ``(arrays or None, reads, substitutions, seconds)``."""
+        spec = dict(INPUTS[name])
+        rate, seed = spec.pop("error_rate"), spec.pop("error_seed")
+        t0 = time.perf_counter()
+        arrays = None
+        if reads is None:
+            arrays, reads = metagenome_matrix(**spec)
+        subs = add_substitutions(reads, rate, seed)
+        return arrays, reads, subs, time.perf_counter() - t0
+
+    def path_figures(name: str, result, probe: dict, wall: float, n_reads: int,
+                     n_windows: int) -> dict:
+        """Print and return one run's figures: stage seconds, nodes, the
+        unique (k+1)-mers, the device peak (of graph_build and of the run)
+        per window and per node, adjacency chunks and count parts, the
+        mate-2 reverse complement and the ordering pool."""
+        stages = {st.name: st for st in result.profile.stages}
+        nodes = stages["graph_build"].counters["nodes"]
+        build_peak = (stages["graph_build"].device_peak_mb or 0) * 2**20
+        peak = result.profile.peak_device_mb() * 2**20
+        print(result.profile.report())
+        fig = {
+            "wall_s": wall, "reads_per_s": n_reads / wall, "nodes": nodes,
+            "unique_edges": probe["unique_edges"] or None, "peak_bytes": peak,
+            "build_peak_bytes": build_peak, "build_bytes_per_window": build_peak / n_windows,
+            "build_bytes_per_node": build_peak / nodes,
+            "adjacency_chunks": probe["adjacency_chunks"], "count_parts": probe["count_parts"],
+            "reverse_complement_s": probe["rc_s"], "reverse_complement_reads": probe["rc_reads"],
+            "ordering_pool_s": probe["ordering_pool_s"], "subproblems": probe["subproblems"],
+            "cycles_in_subproblems": sum(probe["cycles_per_subproblem"]),
+            "stages_s": {k: v.seconds for k, v in stages.items()},
+        }
+        print(f"  {name}: wall {wall:.2f}s, {fig['reads_per_s']:,.0f} reads/s, nodes {nodes}, "
+              f"unique (k+1)-mers {fig['unique_edges']}, device peak {peak / 2**30:.2f} GiB "
+              f"(graph_build {build_peak / 2**30:.2f} GiB: "
+              f"{fig['build_bytes_per_window']:.2f} B a window, "
+              f"{fig['build_bytes_per_node']:.1f} B a node), adjacency chunks "
+              f"{fig['adjacency_chunks']}, count parts {fig['count_parts']}; "
+              f"reverse_complement_batch {fig['reverse_complement_s']:.2f}s on "
+              f"{fig['reverse_complement_reads']} mates; ordering pool "
+              f"{fig['ordering_pool_s']:.2f}s over {fig['subproblems']} subproblems, "
+              f"{fig['cycles_in_subproblems']} cycles ({card})")
+        return fig
+
+    def time_tables(seen: dict) -> dict:
+        """Both report kernels timed on the largest table a path gave
+        them, beside their plain versions and bounds (at the assumed and
+        at the measured integer rate)."""
+        mbig = max(seen["ratio_matrix"], key=lambda x: x[0].shape[0])
+        pbig = max(seen["partial_ratio"], key=lambda x: x[2].shape[0])
+        n = int(mbig[0].shape[0])
+        m = {"strings": n, "batch": n * n,
+             "ms": graph_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig)),
+             "call_ms": cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200),
+             "plain_ms": cuda_ms(lambda: ratio_matrix_plain(*mbig), 5)}
+        m["bound_ms"], m["bound_by"], m["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
+        m["measured_rate_bound"] = ratio_matrix_bound(mbig, measured_int_rate())[:2]
+        p = {"strings": int(pbig[0].shape[0]), "batch": int(pbig[2].shape[0]),
+             "ms": graph_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig)),
+             "plain_ms": cuda_ms(lambda: partial_ratio_table_plain(*pbig), 5)}
+        p["bound_ms"], p["bound_by"] = partial_ratio_bound(pbig)
+        p["measured_rate_bound"] = partial_ratio_bound(pbig, measured_int_rate())
+        for name, f in (("ratio_matrix", m), ("partial_ratio", p)):
+            print(f"  {name} on {f['strings']} strings, {f['batch']} pairs: {f['ms']:.5f} ms on "
+                  f"the card, plain {f['plain_ms']:.4f} ms, bound {f['bound_ms']:.6f} ms by "
+                  f"{f['bound_by']} (at the measured integer rate "
+                  f"{f['measured_rate_bound'][0]:.6f} ms) ({card})")
+        print(f"  ratio_matrix a call from Python {m['call_ms']:.4f} ms; with all n² pairs scored "
+              f"its bound is {m['bound_ms_every_pair']:.6f} ms")
+        return {"ratio_matrix": m, "partial_ratio": p}
+
+    err20: dict = {}
+
+    @phase("20 planted-20x30-err-pe (0.5% substitutions, two mates) through python -m "
+           "mcaat_tpu_torch: one pass, row parts, 4 shards, gzipped")
+    def p20():
+        from mcaat_tpu_torch.cli import run_cli
+        from mcaat_tpu_torch.graph import dbg
+
+        torch.cuda.empty_cache()
+        arrays, reads, subs, gen_s = error_reads("planted-20x30-err-pe")
+        meta = {"arrays": arrays}
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_errpe_")
+        scratch.append(tmp)
+        t0 = time.perf_counter()
+        plain = write_reads(os.path.join(tmp, "plain"), reads)
+        write_s = time.perf_counter() - t0
+        gz = write_reads(os.path.join(tmp, "gz"), reads, gz=True)
+        gz_s = time.perf_counter() - t0 - write_s
+        n_reads, read_len = reads.shape
+        n_windows = 2 * n_reads * (read_len - 23)
+        del reads
+        print(f"  {n_reads} reads in two mates, {n_windows} windows with RC, {subs} substitutions; "
+              f"made in {gen_s:.1f}s, written in {write_s:.1f}s, gzipped (level 1) in {gz_s:.1f}s; "
+              f"sha1 {plain['sha1']}")
+        if gz["sha1"] != plain["sha1"]:
+            fail("the gzipped pair holds other FASTQ bytes than the plain pair")
+        # --ram scales the window budget against 80 GB: about a quarter of
+        # the input's windows a part
+        ram = max(80.0 * n_windows / 4 / dbg.SINGLE_PASS_MAX_WINDOWS, 1.0)
+        reports = {}
+        for name, files, extra, n_shards in (
+            ("single", plain, ["--mesh", "off"], 0),
+            ("parted", plain, ["--mesh", "off", "--ram", f"{ram:.3f}G"], 0),
+            ("shards", plain, ["--mesh", "auto"], 4),
+            ("gz", gz, ["--mesh", "off"], 0),
+        ):
+            seen: dict = {}
+            with shards(n_shards) if n_shards else contextlib.nullcontext(), \
+                    probe_pipeline() as probe, lcs_run(lcs_cuda, seen) as lcs:
+                result, text, wall = quiet_cli(run_cli, [
+                    "--input-files", *files["files"], "--output-folder",
+                    os.path.join(tmp, name), *extra,
+                ], f"cli_errpe_{name}.log")
+            with open(os.path.join(tmp, name, "CRISPR_Arrays.txt"), "rb") as fh:
+                reports[name] = fh.read()
+            fig = path_figures(name, result, probe, wall, n_reads, n_windows)
+            exact, spacers, found = recovery(meta, result.report_text)
+            n_arrays = arrays_with_a_system(meta, result.report_text)
+            fig.update(arrays=n_arrays, repeats_exact=exact, spacers_found=found,
+                       launches=lcs["launches"], systems=len(result.found_systems))
+            print(f"  {name}: systems {fig['systems']}, arrays with a system {n_arrays}/"
+                  f"{len(arrays)} (repeat less its last base: {exact}), spacers "
+                  f"{found}/{len(spacers)}, launches {lcs['launches']}")
+            if n_arrays != len(arrays) or found < 0.95 * len(spacers):
+                fail(f"{name}: {n_arrays} arrays, {found}/{len(spacers)} spacers")
+            for kname in PATH_KERNELS:
+                if lcs["launches"][kname] != len(arrays):
+                    fail(f"{name}: {lcs['launches'][kname]} {kname} launches, not {len(arrays)}")
+            if fig["reverse_complement_reads"] != n_reads - n_reads // 2:
+                fail(f"{name}: mate 2 was not reverse-complemented once")
+            if n_shards and "Graph built (sharded over" not in text:
+                fail("--mesh auto with 4 shards did not take the sharded path")
+            hold_recorded(seen)
+            if name == "single":
+                err20["tables"] = time_tables(seen)
+            err20[name] = fig
+        if err20["parted"]["count_parts"] < 2 or err20["single"]["count_parts"] != 1:
+            fail(f"--ram {ram:.3f}G counted {err20['parted']['count_parts']} parts, one pass "
+                 f"{err20['single']['count_parts']}")
+        if len(set(reports.values())) != 1:
+            fail("the four reports differ: " + ", ".join(
+                f"{k} {len(v)} bytes" for k, v in reports.items()))
+        err20.update(n_reads=n_reads, n_windows=n_windows, substitutions=subs,
+                     report_bytes=len(reports["single"]), generate_s=gen_s, write_s=write_s,
+                     gzip_s=gz_s)
+        print(f"  one pass, {err20['parted']['count_parts']} row parts, 4 shards and the gzipped "
+              f"pair: one report of {len(reports['single'])} bytes; the kernels' inputs equal on "
+              f"the plain versions")
+
+    err1m: dict = {}
+
+    @phase("21 planted-20x30-err-pe-1M: the input's SHA-1, then the report against the JAX-written one")
+    def p21():
+        import torch_reads
+
+        from mcaat_tpu_torch.cli import run_cli
+
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_err1m_")
+        scratch.append(tmp)
+        got = torch_reads.make_named(torch_reads.FIXTURE_INPUT, tmp)
+        if got["sha1"] != torch_reads.fixture_sha1():
+            fail(f"the input generator drifted: {torch_reads.FIXTURE_INPUT} has SHA-1 "
+                 f"{got['sha1']}, the fixture's input {torch_reads.fixture_sha1()}")
+        seen: dict = {}
+        with lcs_run(lcs_cuda, seen) as lcs:
+            result, _text, wall = quiet_cli(run_cli, [
+                "--input-files", *got["files"], "--output-folder", os.path.join(tmp, "out"),
+                "--mesh", "off",
+            ], "cli_err1m.log")
+        with open(os.path.join(tmp, "out", "CRISPR_Arrays.txt"), "rb") as fh:
+            report = fh.read()
+        if report != torch_reads.fixture_report():
+            fail("the report of planted-20x30-err-pe-1M differs from "
+                 "tests/torch_data/err_pe_1M/CRISPR_Arrays.txt")
+        need_launches("planted-20x30-err-pe-1M", lcs["launches"])
+        hold_recorded(seen)
+        print(f"  {got['n_reads']} reads, SHA-1 {got['sha1']} as committed; report byte-identical "
+              f"to the JAX-written fixture ({len(report)} bytes); wall {wall:.2f}s; launches "
+              f"{lcs['launches']}")
+        print(result.profile.report())
+        err1m.update(wall_s=wall, launches=lcs["launches"], report_bytes=len(report),
+                     stages_s={st.name: st.seconds for st in result.profile.stages})
+
+    err1b: dict = {}
+
+    @phase("22 sample-1.03B-err-pe (phase 18's reads, 0.5% substitutions, two mates) through "
+           "python -m mcaat_tpu_torch")
+    def p22():
+        from mcaat_tpu_torch.cli import run_cli
+
+        torch.cuda.empty_cache()
+        arrays, reads = held.pop("sample_1b", (None, None))
+        made, reads, subs, gen_s = error_reads("sample-1.03B-err-pe", reads)
+        arrays = arrays or made
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_err1b_")
+        scratch.append(tmp)
+        t0 = time.perf_counter()
+        written = write_reads(tmp, reads)
+        write_s = time.perf_counter() - t0
+        n_reads, read_len = reads.shape
+        n_windows = 2 * n_reads * (read_len - 23)
+        del reads
+        print(f"  {n_reads} reads in two mates, {n_windows} windows with RC, {subs} substitutions "
+              f"(in {gen_s:.1f}s), written in {write_s:.1f}s")
+        with probe_pipeline() as probe, lcs_run(lcs_cuda) as lcs:
+            result, _text, wall = quiet_cli(run_cli, [
+                "--input-files", *written["files"], "--output-folder", os.path.join(tmp, "out"),
+                "--mesh", "off",
+            ], "cli_err1b.log")
+        fig = path_figures("sample-1.03B-err-pe", result, probe, wall, n_reads, n_windows)
+        total = torch.cuda.get_device_properties(0).total_memory
+        exact, spacers, found = recovery({"arrays": arrays}, result.report_text)
+        n_arrays = arrays_with_a_system({"arrays": arrays}, result.report_text)
+        systems = len(result.found_systems)
+        print(f"  systems {systems}/{len(arrays)}, arrays with a system {n_arrays} (repeat less "
+              f"its last base: {exact}), spacers recovered "
+              f"{found}/{len(spacers)}; launches {lcs['launches']} (6-spacer systems stay under "
+              f"the batched report's threshold); card memory {total / 2**30:.2f} GiB")
+        if systems != len(arrays) or n_arrays != len(arrays):
+            fail(f"{systems} systems and {n_arrays} repeats of {len(arrays)} planted arrays")
+        if found < 0.95 * len(spacers):
+            fail(f"only {found}/{len(spacers)} planted spacers recovered")
+        if fig["peak_bytes"] >= total:
+            fail(f"device peak {fig['peak_bytes']} bytes is not under the card's {total}")
+        err1b.update(fig, n_reads=n_reads, n_windows=n_windows, substitutions=subs,
+                     systems=systems, arrays=n_arrays, repeats_exact=exact, spacers_found=found, spacers=len(spacers),
+                     launches=lcs["launches"], errors_s=gen_s, write_s=write_s)
+
     scratch: list = []
     sharded: dict = {}
     big: dict = {}
+    held: dict = {}
     phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18,
-              p19]
+              p19, p20, p21, p22]
     try:
         for i, run in enumerate(phases, start=1):
             if i not in skip:
@@ -1950,6 +2221,10 @@ def main() -> int:
             "16 direct API": engines["launches"][name],
             "17 250-spacer array": array250["launches"][name],
             "18 1.03B-window sample": sample["launches"][name],
+            "20 planted-20x30-err-pe": {k: err20[k]["launches"][name]
+                                        for k in ("single", "parted", "shards", "gz")},
+            "21 planted-20x30-err-pe-1M": err1m["launches"][name],
+            "22 sample-1.03B-err-pe": err1b["launches"][name],
         }
 
     # no PyTorch call computes an LCS, a ratio or a partial_ratio: library_ms is null
@@ -1999,6 +2274,7 @@ def main() -> int:
             "measured_rate_bound": pstats["measured_rate_bound"],
             "launches_on_paths": on_paths("partial_ratio"),
             "array_250": array250["partial_ratio"],
+            "planted_20x30_err_pe": err20["tables"]["partial_ratio"],
         },
         {
             "name": "ratio_matrix",
@@ -2026,6 +2302,7 @@ def main() -> int:
             "measured_rate_bound_1m": mstats["measured_rate_bound_1m"],
             "launches_on_paths": on_paths("ratio_matrix"),
             "array_250": array250["ratio_matrix"],
+            "planted_20x30_err_pe": err20["tables"]["ratio_matrix"],
         },
     ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
                          "report_call_ms": main_path["call_ms"],
@@ -2038,7 +2315,9 @@ def main() -> int:
             "wall", "stages", "peak", "wire", "build_s", "build_peak", "single_build_s",
             "single_build_peak", "wire_build", "n_live", "resume_wall", "group_wall")},
         "array_250": {k: array250[k] for k in ("wall", "spacers_found", "tables", "pairs")},
-        "sample_1b": sample, "one_shard_count_budget": budget}))
+        "sample_1b": sample, "one_shard_count_budget": budget,
+        "planted_20x30_err_pe": {k: v for k, v in err20.items() if k != "tables"},
+        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -440,7 +440,11 @@ def _bucket_size(n: int) -> int:
 # resident counted parts beside it (kmer/count.py::DEVICE_PARTS_BUDGET)
 # peaked at 53.7-59.1 GB; a merge of two parts takes 52-59 bytes per
 # merged row above what is resident (65.4 GB at 1.02B rows), so it is the
-# unique tables, not the windows, that bound the parted build.
+# unique tables, not the windows, that bound the parted build. Reads with
+# substitution errors leave the window sort the peak: 1.015B windows of
+# paired-end reads with 0.5% and 1% substitutions a base (235.9M and
+# 334.5M nodes, against 124.7M error-free) peaked at 48.84 bytes a window
+# (46.16 GiB; NVIDIA H100 80GB HBM3, 700 W), as the error-free reads did.
 SINGLE_PASS_MAX_WINDOWS = 1_100_000_000
 # Unique (k+1)-mers joined and scattered in one adjacency pass; larger
 # edge tables go in chunks of this size. A pass peaks near 105 bytes per
@@ -448,6 +452,8 @@ SINGLE_PASS_MAX_WINDOWS = 1_100_000_000
 # edge: 486M nodes peaked at 58.3 GB in 100M-edge chunks and ran out of
 # memory in 350M-edge chunks, and about 540M nodes stay under 75% of the
 # card. This, not the window count, is the largest graph one card takes.
+# The 239.0M and 339.8M unique (k+1)-mers of the 0.5% and 1% samples above
+# went in 3 and 4 chunks under the window sort's peak.
 ADJ_SINGLE_SHOT_MAX_EDGES = 100_000_000
 
 

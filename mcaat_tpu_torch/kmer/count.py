@@ -213,7 +213,11 @@ def merge_counted(unique_a, counts_a, unique_b, counts_b):
 # single-pass budget (graph/dbg.py::SINGLE_PASS_MAX_WINDOWS, 53.7 GB on an
 # 80 GB H100) so that a part's count plus the resident parts stay at or
 # under 75% of the card (53.7-59.1 GB measured at 2-3B windows). A merge
-# adds 52-59 bytes per merged row to what is resident (graph/dbg.py).
+# adds 52-59 bytes per merged row to what is resident (graph/dbg.py). On
+# reads with substitution errors the parted peak follows the unique rows:
+# 1.015B windows in 4 parts peaked at 19.03, 29.84 and 39.42 GiB with
+# 124.7M, 235.9M and 334.5M nodes (error-free, 0.5% and 1% a base;
+# NVIDIA H100 80GB HBM3, 700 W).
 DEVICE_PARTS_BUDGET = 10_000_000_000
 
 

@@ -3,11 +3,18 @@ port on one card: the counterpart of ``scripts/e2e_big_tpu.py``, with
 the same arguments, seed and ``make_metagenome`` call.
 
 Usage:  python3 scripts/torch_e2e_big.py [n_arrays] [background_len]
-            [background_coverage] [--device cuda] [--json PATH]
+            [background_coverage] [--error-rate E] [--error-seed S]
+            [--paired] [--gz] [--device cuda] [--json PATH]
 
 ``400 62000000 10.4`` gives 6.59M reads of 100 bases, about 1.03B
 (k+1)-mer windows with the reverse complements, a 124.7M-node graph and
-400 planted arrays of 6 spacers. In order:
+400 planted arrays of 6 spacers. The reads are written from a byte matrix
+(``tests/torch_reads.py``: the bytes ``make_metagenome`` + ``write_fastq``
+give). ``--error-rate E`` substitutes each base with probability E
+(``--error-seed``, default 1), ``--paired`` writes two mate files (mate 2
+reverse-complemented) and ``--gz`` gzips them: ``--error-rate 0.005
+--paired`` is sample-1.03B-err-pe, ``--error-rate 0.01 --paired``
+sample-1.03B-err1-pe (``PERF.md`` §4). In order:
 
 1. ``run_pipeline`` twice in one process (cold, then warm) with
    ``--mesh off``: each stage's seconds, ``Profiler.to_json`` counters,
@@ -50,6 +57,11 @@ def parse_args(argv):
     ap.add_argument("n_arrays", nargs="?", type=int, default=100)
     ap.add_argument("background_len", nargs="?", type=int, default=4_000_000)
     ap.add_argument("background_coverage", nargs="?", type=float, default=8.0)
+    ap.add_argument("--error-rate", type=float, default=0.0,
+                    help="substitutions a base (tests/torch_reads.py)")
+    ap.add_argument("--error-seed", type=int, default=1)
+    ap.add_argument("--paired", action="store_true", help="two mate files, mate 2 reverse-complemented")
+    ap.add_argument("--gz", action="store_true", help="gzip the input files (level 1)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", help="write the figures to this file")
     return ap.parse_args(argv)
@@ -79,7 +91,10 @@ def card_peaks(devices):
     reset = torch.cuda.reset_peak_memory_stats
 
     def fold(d=None):
-        key = str(torch.device(d) if d is not None else torch.device("cuda", torch.cuda.current_device()))
+        dev = torch.device("cuda") if d is None else torch.device(d)
+        if dev.type == "cuda" and dev.index is None:  # the profiler names the card "cuda"
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = str(dev)
         if key in out:
             out[key] = max(out[key], torch.cuda.max_memory_allocated(key))
         reset(d)
@@ -126,48 +141,43 @@ def main(argv=None) -> int:
     card = card_line(device)
     print(f"torch {torch.__version__}, device {device}: {card}", flush=True)
 
-    from synthetic import make_metagenome, write_fastq
+    from torch_probes import probe_pipeline
+    from torch_reads import add_substitutions, metagenome_matrix, write_reads
 
     from mcaat_tpu_torch.graph import dbg
-    from mcaat_tpu_torch.kmer import count as kcount
     from mcaat_tpu_torch.pipeline import BUDGET_CARD_GB, run_pipeline
     from mcaat_tpu_torch.settings import Settings
     from mcaat_tpu_torch.utils import wire
 
     t0 = time.perf_counter()
-    meta = make_metagenome(
+    arrays, reads = metagenome_matrix(
         seed=7, n_arrays=args.n_arrays, n_spacers=6, background_len=args.background_len,
         background_coverage=args.background_coverage, coverage=35.0,
     )
-    gen_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    subs = add_substitutions(reads, args.error_rate, args.error_seed)
+    gen_s, err_s = t1 - t0, time.perf_counter() - t1
+    meta = {"arrays": arrays}
     tmp = tempfile.mkdtemp(prefix="mcaat_e2e_big_")
-    fq = os.path.join(tmp, "reads.fq")
     t0 = time.perf_counter()
-    write_fastq(fq, meta["reads"])
+    written = write_reads(tmp, reads, paired=args.paired, gz=args.gz)
+    fq = " ".join(written["files"])
     write_s = time.perf_counter() - t0
-    n_reads = len(meta["reads"])
-    read_len = len(meta["reads"][0])
-    del meta["reads"]
+    n_reads, read_len = reads.shape
+    del reads
     # both strands, every (k+1)-window of a read of read_len bases
     n_windows = 2 * n_reads * (read_len - 23)
-    print(f"generated {n_reads} reads, {args.n_arrays} arrays, {n_windows} windows with RC "
-          f"(generated in {gen_s:.1f}s, written in {write_s:.1f}s)", flush=True)
+    print(f"generated {n_reads} reads, {args.n_arrays} arrays, {n_windows} windows with RC, "
+          f"{subs} substitutions (rate {args.error_rate:g}), {len(written['files'])} file(s)"
+          f"{' gzipped' if args.gz else ''}, sha1 {written['sha1']} (generated in {gen_s:.1f}s, "
+          f"errors in {err_s:.1f}s, written in {write_s:.1f}s)", flush=True)
     out: dict = {
         "argv": [args.n_arrays, args.background_len, args.background_coverage],
+        "error_rate": args.error_rate, "error_seed": args.error_seed, "paired": args.paired,
+        "gz": args.gz, "substitutions": subs, "input_sha1": written["sha1"],
         "card": card, "device": str(device), "n_reads": n_reads, "n_windows": n_windows,
-        "generate_s": gen_s, "write_s": write_s, "runs": {},
+        "generate_s": gen_s, "errors_s": err_s, "write_s": write_s, "runs": {},
     }
-
-    chunks = {"n": 0, "parts": 0}
-    scatter, count_part = dbg._adjacency_scatter_chunk, kcount._count_edge_part
-
-    def counted_scatter(*a, **kw):
-        chunks["n"] += 1
-        return scatter(*a, **kw)
-
-    def counted_part(*a, **kw):
-        chunks["parts"] += 1
-        return count_part(*a, **kw)
 
     def one_run(name: str, **settings_kw):
         s = Settings(input_files=fq, output_file=os.path.join(tmp, f"{name}.txt"), **settings_kw)
@@ -178,34 +188,50 @@ def main(argv=None) -> int:
             from mcaat_tpu_torch.parallel.sharded import default_devices
 
             devices = sorted(set(default_devices(device)), key=str)
-        chunks["n"] = chunks["parts"] = 0
         wire.reset()
-        dbg._adjacency_scatter_chunk, kcount._count_edge_part = counted_scatter, counted_part
-        try:
-            with card_peaks(devices) if device.type == "cuda" else contextlib.nullcontext({}) as peaks:
-                t1 = time.perf_counter()
-                r = run_pipeline(s, verbose=False, device=device)
-                if device.type == "cuda":
-                    for d in devices:
-                        torch.cuda.synchronize(d)
-                wall = time.perf_counter() - t1
-        finally:
-            dbg._adjacency_scatter_chunk, kcount._count_edge_part = scatter, count_part
+        with probe_pipeline() as probe, \
+                card_peaks(devices) if device.type == "cuda" else contextlib.nullcontext({}) as peaks:
+            t1 = time.perf_counter()
+            r = run_pipeline(s, verbose=False, device=device)
+            if device.type == "cuda":
+                for d in devices:
+                    torch.cuda.synchronize(d)
+            wall = time.perf_counter() - t1
         stages = json.loads(r.profile.to_json())
         full, hits, total = recovery(meta, r.report_text)
+        build = next(st for st in stages if st["name"] == "graph_build")
+        nodes = build["counters"].get("nodes")
+        build_peak = (build["device_peak_mb"] or 0) * 2**20
         fig = {
             "wall_s": wall, "reads_per_s": n_reads / wall, "windows_per_s": n_windows / wall,
             "stages": stages, "device_peak_mb": r.profile.peak_device_mb(),
-            "card_peaks_bytes": dict(peaks), "adjacency_chunks": chunks["n"], "count_parts": chunks["parts"],
+            "card_peaks_bytes": dict(peaks), "adjacency_chunks": probe["adjacency_chunks"],
+            "count_parts": probe["count_parts"], "nodes": nodes,
+            "unique_edges": probe["unique_edges"] or None,
+            "build_peak_bytes_per_window": build_peak / n_windows if build_peak else None,
+            "build_peak_bytes_per_node": build_peak / nodes if build_peak and nodes else None,
+            "reverse_complement_s": probe["rc_s"], "reverse_complement_reads": probe["rc_reads"],
+            "ordering_pool_s": probe["ordering_pool_s"], "subproblems": probe["subproblems"],
+            "cycles_per_subproblem_max": max(probe["cycles_per_subproblem"], default=0),
+            "cycles_in_subproblems": sum(probe["cycles_per_subproblem"]),
             "systems": len(r.found_systems), "arrays_all_spacers": full,
             "spacers_recovered": hits, "spacers_planted": total, "wire": wire.snapshot(),
         }
         out["runs"][name] = fig
         print(f"== {name}: wall {wall:.2f}s, {fig['reads_per_s']:,.0f} reads/s, "
               f"{fig['windows_per_s']:,.0f} windows/s, device peak "
-              f"{(fig['device_peak_mb'] or 0) / 1024:.2f} GiB, adjacency chunks {chunks['n']}, "
-              f"count parts {chunks['parts']} ({card})",
+              f"{(fig['device_peak_mb'] or 0) / 1024:.2f} GiB, adjacency chunks "
+              f"{fig['adjacency_chunks']}, count parts {fig['count_parts']} ({card})",
               flush=True)
+        if nodes:
+            per = (f", build peak {fig['build_peak_bytes_per_window']:.2f} B a window and "
+                   f"{fig['build_peak_bytes_per_node']:.1f} B a node" if build_peak else "")
+            print(f"   nodes {nodes}, unique (k+1)-mers {fig['unique_edges']}{per}; "
+                  f"reverse_complement_batch {fig['reverse_complement_s']:.2f}s on "
+                  f"{fig['reverse_complement_reads']} reads; ordering pool "
+                  f"{fig['ordering_pool_s']:.2f}s, {fig['subproblems']} subproblems, "
+                  f"{fig['cycles_in_subproblems']} cycles (at most "
+                  f"{fig['cycles_per_subproblem_max']} in one)", flush=True)
         for st in stages:
             peak = st["device_peak_mb"]
             print(f"   {st['name']:<16} {st['seconds']:8.3f}s  peak "

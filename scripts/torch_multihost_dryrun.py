@@ -3,7 +3,7 @@ processes of 4 CPU shards each over gloo; with ``--cuda`` one card a
 process over NCCL.
 
 Parent mode (no ``MCAAT_PROCESS_ID``): writes a deterministic synthetic
-FASTQ (or takes ``--fastq``), spawns the children wired through the
+FASTQ (or takes ``--fastq``: one file, or two mates), spawns the children wired through the
 ``MCAAT_*`` variables with a ``file://`` rendezvous in the work directory
 (no TCP port is taken), and checks that all report OK and that the report
 process 0 wrote equals the single-device report of the same input, byte
@@ -22,7 +22,15 @@ Every collective has a timeout (``MCAAT_DIST_TIMEOUT_S``, 60 s here), so
 a process that misses a collective fails the run within a minute.
 
 Usage:  python scripts/torch_multihost_dryrun.py [workdir] [--procs N]
-            [--shards M] [--cuda] [--fastq reads.fq] [--k K]
+            [--shards M] [--cuda] [--fastq reads.fq [mate2.fq]] [--k K]
+            [--paired] [--error-rate E] [--gz]
+
+``--error-rate E`` substitutes each base of the synthetic reads with
+probability E, ``--paired`` writes them as two mate files (mate 2
+reverse-complemented) and ``--gz`` gzips the files
+(``tests/torch_reads.py``): a gzipped file is parsed whole by every
+process, which keeps records ``pid::N``, where a plain one is cut into
+byte ranges.
 
 ``--cuda`` gives child ``p`` the card ``p`` alone (``CUDA_VISIBLE_DEVICES``)
 and needs as many cards as processes.
@@ -50,27 +58,31 @@ def parse_args(argv: list[str]):
     ap.add_argument("--procs", type=int, default=2)
     ap.add_argument("--shards", type=int, default=4, help="local shards of each process")
     ap.add_argument("--cuda", action="store_true", help="one card a process, NCCL")
-    ap.add_argument("--fastq", help="an input to use instead of the synthetic one")
+    ap.add_argument("--fastq", nargs="+", help="an input (one file or two mates) to use instead "
+                    "of the synthetic one")
+    ap.add_argument("--paired", action="store_true", help="the synthetic reads as two mate files")
+    ap.add_argument("--error-rate", type=float, default=0.0,
+                    help="substitutions a base in the synthetic reads")
+    ap.add_argument("--gz", action="store_true", help="gzip the synthetic input (level 1)")
     ap.add_argument("--k", type=int, default=13, help="k of the build check")
     return ap.parse_args(argv)
 
 
 def parent(args) -> int:
-    from synthetic import make_metagenome, write_fastq
+    from torch_reads import make_input
 
     tmpdir = args.workdir or tempfile.mkdtemp(prefix="mcaat_torch_mh_")
     os.makedirs(tmpdir, exist_ok=True)
-    fq = args.fastq
-    if fq is None:
-        meta = make_metagenome(
-            seed=41,
-            n_arrays=int(os.environ.get("MCAAT_MH_ARRAYS", "1")),
-            n_spacers=4,
-            coverage=25.0,
+    if args.fastq:
+        fq = " ".join(args.fastq)
+    else:
+        # make_metagenome's reads, written as write_fastq writes them
+        fq = " ".join(make_input(
+            tmpdir, args.error_rate, paired=args.paired, gz=args.gz, seed=41,
+            n_arrays=int(os.environ.get("MCAAT_MH_ARRAYS", "1")), n_spacers=4,
             background_len=int(os.environ.get("MCAAT_MH_BACKGROUND", "2000")),
-        )
-        fq = os.path.join(tmpdir, "reads.fq")
-        write_fastq(fq, meta["reads"])
+            background_coverage=5.0, coverage=25.0,
+        )["files"])
     store = os.path.join(tmpdir, "rendezvous")
     if os.path.exists(store):
         os.remove(store)
@@ -111,7 +123,7 @@ def parent(args) -> int:
                 print(f"--- child {pid} (rc={p.returncode}) ---")
                 print(out[-4000:])
             elif pid == 0:
-                print("\n".join(x for x in out.splitlines() if x.startswith(("mesh ", "wire:"))))
+                print("\n".join(x for x in out.splitlines() if x.startswith(("MULTIHOST OK", "mesh ", "wire:"))))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -158,6 +170,7 @@ def child() -> int:
         frontier_step,
         tag_adjacency,
     )
+    from mcaat_tpu_torch.pipeline import _concat_batches
     from mcaat_tpu_torch.settings import Settings
 
     N_PROC = int(os.environ["MCAAT_NUM_PROCESSES"])
@@ -175,12 +188,13 @@ def child() -> int:
     dev = mesh.local_devices[0]
 
     fq = os.environ["MCAAT_MH_FASTQ"]
-    batch = read_host_shard(fq, pid, n_proc)
-    assert batch.num_reads > 0, "empty process shard"
-    rows = host_local_rows_to_global(mesh, batch.codes, batch.lengths)
+    files = fq.split()
+    codes, lengths = _concat_batches([(f, read_host_shard(f, pid, n_proc)) for f in files])
+    assert codes.shape[0] > 0, "empty process shard"
+    rows = host_local_rows_to_global(mesh, codes, lengths)
     assert len(rows) == LOCAL_SHARDS
 
-    sg = build_sharded_dbg(mesh, batch.codes, batch.lengths, k=K)
+    sg = build_sharded_dbg(mesh, codes, lengths, k=K)
     # the table is truly sharded: this process holds its own kp shards only
     assert len(sg.kmers) == LOCAL_SHARDS
     assert sg.T == int(sg.n_live.max())
@@ -189,9 +203,9 @@ def child() -> int:
 
     kmers_h = host_replicated(mesh, sg.kmers)
     mult_h = host_replicated(mesh, sg.mult)
-    full = read_encoded_batch(fq)
+    full_codes, full_lengths = _concat_batches([(f, read_encoded_batch(f)) for f in files])
     ref = build_dbg_from_reads(
-        full.codes, full.lengths, k=K, add_reverse_complement=False, device=dev
+        full_codes, full_lengths, k=K, add_reverse_complement=False, device=dev
     )
     assert np.array_equal(kmers_h, ref.kmers.cpu().numpy()), "node table mismatch"
     assert np.array_equal(mult_h, ref.mult.cpu().numpy()), "multiplicity mismatch"
@@ -207,7 +221,7 @@ def child() -> int:
     assert n_exp > 0, "frontier expanded nothing"
     print(
         f"MULTIHOST OK pid={pid}: {len(kmers_h)} nodes, process shard "
-        f"{batch.num_reads} reads, frontier expanded {n_exp}",
+        f"{codes.shape[0]} reads in {len(files)} file(s), frontier expanded {n_exp}",
         flush=True,
     )
 

@@ -464,64 +464,22 @@ def child_main(args) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _sampled(rng, template, read_len: int, coverage: float):
-    """``synthetic.sample_reads`` on a uint8 template: the same draws, the
-    reads as rows of a ``[n, read_len]`` matrix."""
-    import numpy as np
-
-    n = int(np.ceil(len(template) * coverage / read_len))
-    starts = rng.integers(0, max(len(template) - read_len, 1), size=n)
-    if len(template) <= read_len:
-        raise ValueError("a template no longer than a read gives short reads")
-    return np.lib.stride_tricks.sliding_window_view(template, read_len)[starts]
-
-
 def write_planted_fastq(path: str, seed: int, n_arrays: int, n_spacers: int,
                         background_len: int, background_coverage: float, coverage: float,
                         read_len: int = 100, flank_len: int = 300):
     """``write_fastq(path, make_metagenome(...)["reads"])`` in bulk: the same
     random draws in the same order and the same file bytes, with the reads
     as rows of a byte matrix instead of a Python string each (tens of
-    millions of strings take minutes to make and to write). Returns
-    ``(arrays, n_reads)``, ``arrays`` as ``make_metagenome`` gives them."""
-    import numpy as np
-    from synthetic import BASES, make_crispr_array, random_seq
+    millions of strings take minutes to make and to write;
+    ``tests/torch_reads.py``). Returns ``(arrays, n_reads)``, ``arrays`` as
+    ``make_metagenome`` gives them."""
+    from torch_reads import metagenome_matrix, write_fastq_matrix
 
-    rng = np.random.default_rng(seed)
-    arrays, parts = [], []
-    for _ in range(n_arrays):
-        arr_seq, repeat, spacers = make_crispr_array(rng, n_spacers=n_spacers)
-        template = random_seq(rng, flank_len) + arr_seq + random_seq(rng, flank_len)
-        arrays.append({"sequence": arr_seq, "repeat": repeat, "spacers": spacers})
-        parts.append(_sampled(rng, np.frombuffer(template.encode(), dtype=np.uint8), read_len,
-                              coverage))
-    if background_len:
-        bg = BASES[rng.integers(0, 4, size=background_len)]
-        parts.append(_sampled(rng, bg, read_len, background_coverage))
-        del bg
-    reads = np.concatenate(parts)
-    del parts
-    order = rng.permutation(reads.shape[0])
-    # "@read{i}\n{seq}\n+\n{'I' * len(seq)}\n": records of one width for
-    # every i of one digit count
-    with open(path, "wb") as fh:
-        d, lo = 1, 0
-        while lo < reads.shape[0]:
-            hi = min(10**d, reads.shape[0])
-            for a in range(lo, hi, 1 << 20):
-                b = min(a + (1 << 20), hi)
-                rec = np.empty((b - a, 10 + d + 2 * read_len), dtype=np.uint8)
-                rec[:, :5] = np.frombuffer(b"@read", dtype=np.uint8)
-                idx = np.arange(a, b)
-                for j in range(d):
-                    rec[:, 5 + j] = 48 + (idx // 10 ** (d - 1 - j)) % 10
-                rec[:, 5 + d] = 10
-                rec[:, 6 + d : 6 + d + read_len] = reads[order[a:b]]
-                rec[:, 6 + d + read_len : 9 + d + read_len] = np.frombuffer(b"\n+\n", np.uint8)
-                rec[:, 9 + d + read_len : -1] = ord("I")
-                rec[:, -1] = 10
-                fh.write(rec.tobytes())
-            d, lo = d + 1, hi
+    arrays, reads = metagenome_matrix(
+        seed, n_arrays, n_spacers, background_len, background_coverage, coverage,
+        read_len=read_len, flank_len=flank_len,
+    )
+    write_fastq_matrix(path, reads)
     return arrays, int(reads.shape[0])
 
 
