@@ -126,7 +126,13 @@ Phases (any failure exits non-zero):
 22. sample-1.03B-err-pe: phase 18's reads with 0.5% substitutions, as two
     mates, through the CLI entry point: every system, at least 95% of the
     spacers, the device peak under the card's memory, the adjacency
-    chunks and the bytes a window and a node printed.
+    chunks and the bytes a window and a node printed;
+23. ``bench_torch.py --cell planted-20x30 --cell array-250 --runs 3`` in
+    a process of its own: its last line is JSON with every metric name of
+    ``bench.py``'s set and of a cell, its gate passed, its planted-20x30
+    report has the SHA-1 of phase 5's, its cells launched ``ratio_matrix``
+    and ``partial_ratio`` 20 + 20 and 1 + 1 times, and kp 8's node table
+    equals kp 1's; the medians and quartiles are printed.
 
 Each path after phase 6 reads its own launch counts (zeroed just before
 it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0 (phases 18
@@ -403,52 +409,6 @@ def length_grid(rng, device):
     ]
 
 
-def recovery(meta, report: str):
-    """(arrays reported, planted spacers, spacers recovered) of a report
-    against the planted ground truth (either strand; the reported repeat
-    lacks its last base, a reference quirk)."""
-    from mcaat_tpu_torch.io.fastq import reverse_complement
-
-    arrays = sum(
-        1 for a in meta["arrays"]
-        if a["repeat"][:-1] in report or reverse_complement(a["repeat"])[:-1] in report
-    )
-    spacers = [s for a in meta["arrays"] for s in a["spacers"]]
-    found = sum(
-        1 for s in spacers if s[6:-6] in report or reverse_complement(s[6:-6]) in report
-    )
-    return arrays, spacers, found
-
-
-def reported_repeats(report: str) -> list:
-    """The repeat of every system of a ``CRISPR_Arrays.txt``: the line
-    between the two dashed lines that open the system."""
-    lines = report.splitlines()
-    dash = "-" * 50
-    return [
-        lines[i] for i in range(1, len(lines) - 1)
-        if lines[i - 1] == dash and lines[i + 1] == dash and lines[i]
-        and set(lines[i]) <= set("ACGT")
-    ]
-
-
-def arrays_with_a_system(meta, report: str) -> int:
-    """Planted arrays that a reported system's repeat shares a k-mer (23
-    bases) with, on either strand. On error-free reads the reported repeat
-    is the planted one less its last base; on reads with substitutions the
-    reference (and the port with it) may place a repeat's ends a base or
-    two off, taking a base of the next spacer or dropping one more."""
-    from mcaat_tpu_torch.io.fastq import reverse_complement
-
-    kmers = {r[i : i + 23] for r in reported_repeats(report) for i in range(len(r) - 22)}
-    return sum(
-        1 for a in meta["arrays"]
-        if any(a["repeat"][i : i + 23] in kmers
-               or reverse_complement(a["repeat"])[i : i + 23] in kmers
-               for i in range(len(a["repeat"]) - 22))
-    )
-
-
 KERNELS = {
     "lcs_ratio": "lcs_ratio_cuda",
     "partial_ratio": "partial_ratio_cuda",
@@ -555,7 +515,12 @@ def main() -> int:
         import mcaat_tpu_torch  # noqa: F401
         from synthetic import make_metagenome, write_fastq
         from torch_fuzz_windows import edge_pairs, expanded_partial_ratio, rand_dna
-        from torch_probes import probe_pipeline
+        from torch_probes import (
+            arrays_found,
+            probe_pipeline,
+            probe_sharded_count,
+            spacer_recovery,
+        )
         from torch_reads import (
             INPUTS,
             SAMPLE_1B,
@@ -884,7 +849,8 @@ def main() -> int:
         # peak is the largest stage peak
         peak = result.profile.peak_device_mb() * 2**20
         nodes = next(s.counters["nodes"] for s in result.profile.stages if s.name == "graph_build")
-        arrays, spacers, found = recovery(meta, result.report_text)
+        arrays = arrays_found(meta["arrays"], result.report_text, errors=False)
+        found, n_spacers = spacer_recovery(meta["arrays"], result.report_text)
         print("  stage timings:")
         print(result.profile.report())
         print(
@@ -894,7 +860,7 @@ def main() -> int:
         )
         print(
             f"  arrays reported {arrays}/{len(meta['arrays'])}, spacers "
-            f"recovered {found}/{len(spacers)}, launches {launches}"
+            f"recovered {found}/{n_spacers}, launches {launches}"
         )
         n_windows = 2 * sum(len(r) - 23 for r in meta["reads"])
         print(f"  unique (k+1)-mers {probe['unique_edges']}, device peak "
@@ -922,8 +888,8 @@ def main() -> int:
             fail(f"only {nodes} graph nodes; the smoke needs at least 2M")
         if arrays != len(meta["arrays"]):
             fail(f"{len(meta['arrays']) - arrays} planted arrays not reported")
-        if found < 0.98 * len(spacers):
-            fail(f"only {found}/{len(spacers)} planted spacers recovered")
+        if found < 0.98 * n_spacers:
+            fail(f"only {found}/{n_spacers} planted spacers recovered")
         need_launches("the main path", launches)
         with open(os.path.join(tmp, "out", "CRISPR_Arrays.txt"), "rb") as fh:
             report = fh.read()
@@ -1165,15 +1131,16 @@ def main() -> int:
                 ], f"cli_{name}.log")
             report = open(os.path.join(tmp, name, "CRISPR_Arrays.txt"), "rb").read()
             runs[name] = (report, counts["_count_edge_part"], lcs["launches"], wall, result)
-            arrays, spacers, found = recovery(meta, result.report_text)
+            arrays = arrays_found(meta["arrays"], result.report_text, errors=False)
+            found, n_spacers = spacer_recovery(meta["arrays"], result.report_text)
             print(
                 f"  {name}: {counts['_count_edge_part']} part(s), wall {wall:.2f}s, "
                 f"{big['n_reads'] / wall:.0f} reads/s, arrays {arrays}/{len(meta['arrays'])}, "
-                f"spacers {found}/{len(spacers)}, launches {lcs['launches']} ({card})"
+                f"spacers {found}/{n_spacers}, launches {lcs['launches']} ({card})"
             )
             print(result.profile.report())
-            if arrays != len(meta["arrays"]) or found < 0.98 * len(spacers):
-                fail(f"{name}: {arrays} arrays, {found}/{len(spacers)} spacers")
+            if arrays != len(meta["arrays"]) or found < 0.98 * n_spacers:
+                fail(f"{name}: {arrays} arrays, {found}/{n_spacers} spacers")
             need_launches(f"the {name} CLI run", lcs["launches"])
             if name == "parted":
                 hold_recorded(seen)
@@ -1307,11 +1274,12 @@ def main() -> int:
         """A planted-20x30 report: phase 5's bytes, every array, at least
         98% of the spacers, the pipeline's kernels launched."""
         meta = main_path["meta"]
-        arrays, spacers, found = recovery(meta, report.decode())
+        arrays = arrays_found(meta["arrays"], report.decode(), errors=False)
+        found, n_spacers = spacer_recovery(meta["arrays"], report.decode())
         print(f"  {path}: arrays {arrays}/{len(meta['arrays'])}, spacers "
-              f"{found}/{len(spacers)}, launches {launches}")
-        if arrays != len(meta["arrays"]) or found < 0.98 * len(spacers):
-            fail(f"{path}: {arrays} arrays, {found}/{len(spacers)} spacers")
+              f"{found}/{n_spacers}, launches {launches}")
+        if arrays != len(meta["arrays"]) or found < 0.98 * n_spacers:
+            fail(f"{path}: {arrays} arrays, {found}/{n_spacers} spacers")
         if report != main_path["report"]:
             fail(f"{path}: CRISPR_Arrays.txt differs from phase 5's")
         need_launches(path, launches)
@@ -1789,12 +1757,12 @@ def main() -> int:
         if report != torch_big_array.expected_report():
             fail("the 250-spacer array's CRISPR_Arrays.txt differs from "
                  "tests/torch_data/big_array/CRISPR_Arrays.txt")
-        _arrays, spacers, found = recovery(meta, result.report_text)
+        found, n_spacers = spacer_recovery(meta["arrays"], result.report_text)
         need_launches("the 250-spacer array", launches)
         tables = [int(x[0].shape[0]) for x in seen["ratio_matrix"]]
         pairs = [(int(x[0].shape[0]), int(x[2].shape[0])) for x in seen["partial_ratio"]]
         print(f"  report byte-identical to the JAX-written fixture; spacers recovered {found}/"
-              f"{len(spacers)}; wall {wall:.2f}s; launches {launches}")
+              f"{n_spacers}; wall {wall:.2f}s; launches {launches}")
         print(f"  ratio_matrix strings {tables}; partial_ratio (strings, pairs) {pairs}")
         print(result.profile.report())
         if max(tables) < 200:
@@ -1840,18 +1808,19 @@ def main() -> int:
         peak = result.profile.peak_device_mb() * 2**20
         total = torch.cuda.get_device_properties(0).total_memory
         nodes = next(st.counters["nodes"] for st in result.profile.stages if st.name == "graph_build")
-        arrays, spacers, found = recovery(meta, result.report_text)
+        arrays = arrays_found(meta["arrays"], result.report_text, errors=False)
+        found, n_spacers = spacer_recovery(meta["arrays"], result.report_text)
         systems = len(result.found_systems)
         print(f"  graph nodes {nodes}, adjacency chunks {chunks}, wall {wall:.2f}s, "
               f"{n_reads / wall:,.0f} reads/s, {n_windows / wall:,.0f} windows/s, device peak "
               f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB ({card})")
         print(f"  systems {systems}/{len(meta['arrays'])}, repeats reported {arrays}, spacers "
-              f"recovered {found}/{len(spacers)} (the JAX package's record: 2357/2400); launches "
+              f"recovered {found}/{n_spacers} (the JAX package's record: 2357/2400); launches "
               f"{lcs['launches']} (6-spacer systems stay under the batched report's threshold)")
         if systems != len(meta["arrays"]) or arrays != len(meta["arrays"]):
             fail(f"{systems} systems and {arrays} repeats of {len(meta['arrays'])} planted arrays")
-        if found < 0.98 * len(spacers):
-            fail(f"only {found}/{len(spacers)} planted spacers recovered")
+        if found < 0.98 * n_spacers:
+            fail(f"only {found}/{n_spacers} planted spacers recovered")
         if chunks < 2:
             fail(f"the adjacency went in {chunks} pass(es): the chunked adjacency did not run")
         if peak >= total:
@@ -1859,7 +1828,7 @@ def main() -> int:
         big["fq"] = fq  # phase 19 builds the same reads
         sample.update(wall_s=wall, n_reads=n_reads, n_windows=n_windows, nodes=nodes,
                       adjacency_chunks=chunks, peak_bytes=peak, systems=systems,
-                      spacers_found=found, spacers=len(spacers), launches=lcs["launches"],
+                      spacers_found=found, spacers=n_spacers, launches=lcs["launches"],
                       generate_s=gen_s, write_s=write_s, figures=figures,
                       stages_s={st.name: st.seconds for st in result.profile.stages})
 
@@ -1878,52 +1847,23 @@ def main() -> int:
         tmp = tempfile.mkdtemp(prefix="mcaat_smoke_budget_")
         scratch.append(tmp)
         calls: dict = {}
-        rows: list = []
-        peaks: dict = {}
-        count_unique, drain = sharded_graph.count_unique, sharded_graph._merge_stack_drain
-        adjacency = sharded_graph._sharded_adjacency
-
-        def mark(name: str) -> None:  # the peak since the last mark, then a fresh one
-            torch.cuda.synchronize()
-            peaks[name] = torch.cuda.max_memory_allocated() - peaks["base"]
-            torch.cuda.reset_peak_memory_stats()
-
-        def counted(x):  # one shard's count input of one row part
-            rows.append(int(x.numel()))
-            return count_unique(x)
-
-        def drained(*a):
-            if "count" not in peaks:
-                mark("count")
-            return drain(*a)
-
-        def adjacent(*a):
-            mark("nodes")
-            out = adjacency(*a)
-            mark("adjacency")
-            return out
-
         with shards(1), counting(dist, "all_to_all_single", calls):
             multihost.initialize_distributed(
                 f"file://{os.path.join(tmp, 'store')}", 1, 0, device=device, timeout_s=300
             )
-            sharded_graph.count_unique, sharded_graph._merge_stack_drain = counted, drained
-            sharded_graph._sharded_adjacency = adjacent
             try:
                 mesh = multihost.make_global_mesh(device)
                 if not mesh.distributed or mesh.shape != {"dp": 1, "kp": 1}:
                     fail(f"phase 19's mesh is {mesh.shape}, distributed {mesh.distributed}")
-                torch.cuda.synchronize()
-                peaks["base"] = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                sg = sharded_graph.build_sharded_dbg(mesh, batch.codes, batch.lengths, add_rc=True)
-                torch.cuda.synchronize()
-                build_s = time.perf_counter() - t0
+                with probe_sharded_count(device) as probe:
+                    t0 = time.perf_counter()
+                    sg = sharded_graph.build_sharded_dbg(mesh, batch.codes, batch.lengths,
+                                                         add_rc=True)
+                    torch.cuda.synchronize()
+                    build_s = time.perf_counter() - t0
             finally:
-                sharded_graph.count_unique, sharded_graph._merge_stack_drain = count_unique, drain
-                sharded_graph._sharded_adjacency = adjacency
                 dist.destroy_process_group()
+        rows, peaks = probe["rows"], probe["peaks"]
         if calls["all_to_all_single"] == 0:
             fail("phase 19's build made no torch.distributed exchange")
         kmers, mult, out, in_ = sg.kmers[0], sg.mult[0], sg.out[0], sg.in_[0]
@@ -1957,7 +1897,7 @@ def main() -> int:
             fail(f"the budget cut {n_parts} part(s): the count ran at no part's budget")
         budget.update(nodes=T, n_parts=n_parts, count_rows=max(rows), build_s=build_s,
                       single_build_s=single_s, bytes_per_count_row=per_row,
-                      peaks_bytes={k: v for k, v in peaks.items() if k != "base"})
+                      peaks_bytes=peaks)
 
     def error_reads(name: str, reads=None):
         """The reads of ``torch_reads.INPUTS[name]`` with its substitutions
@@ -2079,15 +2019,16 @@ def main() -> int:
             with open(os.path.join(tmp, name, "CRISPR_Arrays.txt"), "rb") as fh:
                 reports[name] = fh.read()
             fig = path_figures(name, result, probe, wall, n_reads, n_windows)
-            exact, spacers, found = recovery(meta, result.report_text)
-            n_arrays = arrays_with_a_system(meta, result.report_text)
+            exact = arrays_found(meta["arrays"], result.report_text, errors=False)
+            found, n_spacers = spacer_recovery(meta["arrays"], result.report_text)
+            n_arrays = arrays_found(meta["arrays"], result.report_text, errors=True)
             fig.update(arrays=n_arrays, repeats_exact=exact, spacers_found=found,
                        launches=lcs["launches"], systems=len(result.found_systems))
             print(f"  {name}: systems {fig['systems']}, arrays with a system {n_arrays}/"
                   f"{len(arrays)} (repeat less its last base: {exact}), spacers "
-                  f"{found}/{len(spacers)}, launches {lcs['launches']}")
-            if n_arrays != len(arrays) or found < 0.95 * len(spacers):
-                fail(f"{name}: {n_arrays} arrays, {found}/{len(spacers)} spacers")
+                  f"{found}/{n_spacers}, launches {lcs['launches']}")
+            if n_arrays != len(arrays) or found < 0.95 * n_spacers:
+                fail(f"{name}: {n_arrays} arrays, {found}/{n_spacers} spacers")
             for kname in PATH_KERNELS:
                 if lcs["launches"][kname] != len(arrays):
                     fail(f"{name}: {lcs['launches'][kname]} {kname} launches, not {len(arrays)}")
@@ -2174,29 +2115,103 @@ def main() -> int:
             ], "cli_err1b.log")
         fig = path_figures("sample-1.03B-err-pe", result, probe, wall, n_reads, n_windows)
         total = torch.cuda.get_device_properties(0).total_memory
-        exact, spacers, found = recovery({"arrays": arrays}, result.report_text)
-        n_arrays = arrays_with_a_system({"arrays": arrays}, result.report_text)
+        exact = arrays_found(arrays, result.report_text, errors=False)
+        found, n_spacers = spacer_recovery(arrays, result.report_text)
+        n_arrays = arrays_found(arrays, result.report_text, errors=True)
         systems = len(result.found_systems)
         print(f"  systems {systems}/{len(arrays)}, arrays with a system {n_arrays} (repeat less "
               f"its last base: {exact}), spacers recovered "
-              f"{found}/{len(spacers)}; launches {lcs['launches']} (6-spacer systems stay under "
+              f"{found}/{n_spacers}; launches {lcs['launches']} (6-spacer systems stay under "
               f"the batched report's threshold); card memory {total / 2**30:.2f} GiB")
         if systems != len(arrays) or n_arrays != len(arrays):
             fail(f"{systems} systems and {n_arrays} repeats of {len(arrays)} planted arrays")
-        if found < 0.95 * len(spacers):
-            fail(f"only {found}/{len(spacers)} planted spacers recovered")
+        if found < 0.95 * n_spacers:
+            fail(f"only {found}/{n_spacers} planted spacers recovered")
         if fig["peak_bytes"] >= total:
             fail(f"device peak {fig['peak_bytes']} bytes is not under the card's {total}")
         err1b.update(fig, n_reads=n_reads, n_windows=n_windows, substitutions=subs,
-                     systems=systems, arrays=n_arrays, repeats_exact=exact, spacers_found=found, spacers=len(spacers),
+                     systems=systems, arrays=n_arrays, repeats_exact=exact, spacers_found=found, spacers=n_spacers,
                      launches=lcs["launches"], errors_s=gen_s, write_s=write_s)
+
+    bench: dict = {}
+
+    @phase("23 bench_torch.py on planted-20x30 and array-250 (a cold run and three warm runs each)")
+    def p23():
+        import hashlib
+
+        import bench_torch
+
+        torch.cuda.empty_cache()  # the benchmark's processes share the card
+        out = os.path.join(ROOT, "build", "chip_smoke", "bench_torch.json")
+        log = os.path.join(ROOT, "build", "chip_smoke", "bench_torch.log")
+        os.makedirs(os.path.dirname(log), exist_ok=True)
+        env = {k: v for k, v in os.environ.items() if not k.startswith("MCAAT_")}
+        with open(log, "w") as fh:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--cell", "planted-20x30",
+                 "--cell", "array-250", "--runs", "3", "--json", out],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=fh, text=True, timeout=900,
+            )
+        print("  progress: build/chip_smoke/bench_torch.log; the line: "
+              "build/chip_smoke/bench_torch.json")
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            with open(log) as fh:
+                print(fh.read()[-4000:])
+            fail(f"bench_torch.py exited with {proc.returncode}")
+        try:
+            got = json.loads(lines[-1])
+        except json.JSONDecodeError:
+            fail(f"bench_torch.py's last line is not JSON: {lines[-1][:200]}")
+        extra = got["extra"]
+        missing = [m for m in bench_torch.PART1_METRICS if m not in extra]
+        cells = extra.get("cells", {})
+        for name in ("planted-20x30", "array-250"):
+            missing += [f"{name}.{m}" for m in bench_torch.CELL_METRICS
+                        if m not in cells.get(name, {})]
+        if missing or not {"metric", "value", "unit", "vs_baseline"} <= set(got):
+            fail(f"bench_torch.py's line lacks {missing}")
+        planted, array = cells["planted-20x30"], cells["array-250"]
+        if "report" in main_path and \
+                planted["report_sha1"] != hashlib.sha1(main_path["report"]).hexdigest():
+            fail("bench_torch.py's planted-20x30 report differs from phase 5's")
+        want = {"planted-20x30": 20, "array-250": 1}
+        for name, n in want.items():
+            launches = cells[name]["launches"]
+            if any(launches[k] != n for k in PATH_KERNELS):
+                fail(f"bench_torch.py's {name} launched {launches}, not {n} + {n}")
+        if not extra["scaling"]["node_table_parity"]:
+            fail("bench_torch.py's scaling: kp 8's node table differs from kp 1's")
+        for name, c in cells.items():
+            w, r = c["wall_s"], c["reads_per_s"]
+            print(f"  {name}: cold {c['cold_s']:.2f}s; warm median {w['median']:.3f}s (quartiles "
+                  f"{w['q1']:.3f}-{w['q3']:.3f}, n={w['n']}), {r['median']:,.0f} reads/s; "
+                  f"stages {({k: round(v, 3) for k, v in c['stages_s'].items()})}; peak "
+                  f"{c['device_peak_bytes'] / 2**30:.2f} GiB, reserved unused there "
+                  f"{c['reserved_unused_at_peak_bytes'] / 2**30:.2f} GiB; nodes {c['nodes']}; "
+                  f"launches {c['launches']}; gate {c['gate']} ({card})")
+        sc = extra["scaling"]
+        print(f"  part 1: uniform build {extra['graph_build_kmers_per_s']:,.0f} k-mers/s, planted "
+              f"build {extra['planted_build_kmers_per_s']:,.0f} k-mers/s, cycle search "
+              f"{extra['cycle_search_nodes_per_s']:,.0f} nodes/s, warm e2e "
+              f"{extra['e2e_reads_per_s_warm']:,.0f} reads/s, spacers {extra['spacer_recovery']}; "
+              f"kp 1 / kp 8 node table {sc['kp1']['node_table_sha1']} / "
+              f"{sc['kp8']['node_table_sha1']}, {sc['count_budget']['bytes_per_count_row_kp1']} "
+              f"bytes a count row ({card})")
+        bench.update(
+            part1={m: extra[m] for m in bench_torch.PART1_METRICS if m != "scaling"},
+            node_table_sha1={kp: sc[kp]["node_table_sha1"] for kp in ("kp1", "kp8")},
+            cells={n: {k: c[k] for k in ("cold_s", "wall_s", "reads_per_s", "stages_s",
+                                         "device_peak_bytes", "reserved_unused_at_peak_bytes",
+                                         "launches", "report_sha1", "gate")}
+                   for n, c in cells.items()})
 
     scratch: list = []
     sharded: dict = {}
     big: dict = {}
     held: dict = {}
     phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18,
-              p19, p20, p21, p22]
+              p19, p20, p21, p22, p23]
     try:
         for i, run in enumerate(phases, start=1):
             if i not in skip:
@@ -2317,7 +2332,7 @@ def main() -> int:
         "array_250": {k: array250[k] for k in ("wall", "spacers_found", "tables", "pairs")},
         "sample_1b": sample, "one_shard_count_budget": budget,
         "planted_20x30_err_pe": {k: v for k, v in err20.items() if k != "tables"},
-        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b}))
+        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b, "bench_torch": bench}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -50,6 +50,8 @@ class StageStats:
     counters: dict[str, float] = field(default_factory=dict)
     rss_mb: float = 0.0  # host RSS at stage END (attribution, not peak)
     device_peak_mb: float | None = None  # peak device memory inside the stage
+    # what the caching allocator holds at the stage's end, on the card of the peak
+    device_reserved_mb: float | None = None
 
 
 class Profiler:
@@ -87,9 +89,12 @@ class Profiler:
             stats.seconds = time.perf_counter() - t0
             stats.rss_mb = round(host_rss_mb(), 1)
             if self._cuda:
-                stats.device_peak_mb = max(
-                    torch.cuda.max_memory_allocated(d) for d in self._cuda
-                ) / 2**20
+                peak, reserved = max(
+                    (torch.cuda.max_memory_allocated(d), torch.cuda.memory_reserved(d))
+                    for d in self._cuda
+                )
+                stats.device_peak_mb = peak / 2**20
+                stats.device_reserved_mb = reserved / 2**20
             self.stages.append(stats)
 
     def count(self, stage_name: str, **counters) -> None:

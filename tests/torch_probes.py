@@ -1,7 +1,8 @@
-"""Counters around one pipeline run of the torch port, for the chip
-runs (``chip_smoke.py``, ``scripts/torch_e2e_big.py``) and their CPU
-tests. Nothing in the package is changed: each probe wraps a module
-attribute for the length of a ``with`` block and puts it back.
+"""Counters around one pipeline run of the torch port, and the rules
+that hold a report to its planted truth, for the chip runs
+(``chip_smoke.py``, ``bench_torch.py``, ``scripts/torch_e2e_big.py``)
+and their CPU tests. Nothing in the package is changed: each probe wraps
+a module attribute for the length of a ``with`` block and puts it back.
 
 ``probe_pipeline()`` yields a dict that fills as the run goes:
 
@@ -14,12 +15,29 @@ attribute for the length of a ``with`` block and puts it back.
   ``io/fastq.py::reverse_complement_batch`` (mate 2 of a paired run);
 - ``ordering_pool_s``, ``subproblems`` and ``cycles_per_subproblem``:
   ``pipeline.py::_solve_subproblems``, the forked ordering pool.
+
+``probe_sharded_count(device)`` yields the sharded build's count budget
+(``parallel/sharded_graph.py``):
+
+- ``rows``: the rows of each shard's count input of each row part
+  (``count_unique``), the unit of ``SHARDED_COUNT_SHARD_ROWS``;
+- ``peaks``: on a card, the allocated peak above the block's start of
+  the count parts (read at the first drain of the merge stack), the node
+  table (read as the adjacency starts), the adjacency and what follows;
+  each reading starts a fresh peak;
+- ``peak_bytes``: on a card, the block's allocated peak.
+
+The truth rules: :func:`spacer_recovery` (``bench.py``'s core rule),
+:func:`arrays_found` (the exact repeat on error-free reads, a shared
+23-mer on error-bearing ones) and :func:`reported_repeats`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+K = 23
 
 
 @contextlib.contextmanager
@@ -77,3 +95,97 @@ def probe_pipeline():
         stack.enter_context(_wrapped(fastq, "reverse_complement_batch", rc))
         stack.enter_context(_wrapped(pipeline, "_solve_subproblems", pool))
         yield got
+
+
+@contextlib.contextmanager
+def probe_sharded_count(device=None):
+    import torch
+
+    from mcaat_tpu_torch.parallel import sharded_graph
+
+    cuda = device is not None and torch.device(device).type == "cuda"
+    got = {"rows": [], "peaks": {}, "peak_bytes": None}
+    peaks = got["peaks"]
+    base = 0
+
+    def mark(name: str) -> None:  # the peak since the last mark, then a fresh one
+        if cuda:
+            torch.cuda.synchronize(device)
+            peaks[name] = torch.cuda.max_memory_allocated(device) - base
+            torch.cuda.reset_peak_memory_stats(device)
+
+    count_unique = sharded_graph.count_unique
+    drain = sharded_graph._merge_stack_drain
+    adjacency = sharded_graph._sharded_adjacency
+
+    def count(x):  # one shard's count input of one row part
+        got["rows"].append(int(x.numel()))
+        return count_unique(x)
+
+    def drained(*a):
+        if "count" not in peaks:
+            mark("count")
+        return drain(*a)
+
+    def adjacent(*a):
+        mark("nodes")
+        out = adjacency(*a)
+        mark("adjacency")
+        return out
+
+    if cuda:
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    sharded_graph.count_unique, sharded_graph._merge_stack_drain = count, drained
+    sharded_graph._sharded_adjacency = adjacent
+    try:
+        yield got
+    finally:
+        sharded_graph.count_unique, sharded_graph._merge_stack_drain = count_unique, drain
+        sharded_graph._sharded_adjacency = adjacency
+    mark("rest")
+    if cuda:
+        got["peak_bytes"] = base + max(peaks.values())
+
+
+def _rc(seq: str) -> str:
+    from mcaat_tpu_torch.io.fastq import reverse_complement
+
+    return reverse_complement(seq)
+
+
+def spacer_recovery(arrays: list, report: str) -> tuple[int, int]:
+    """``bench.py``'s rule: planted spacers whose core ``sp[6:-6]`` is in
+    the report on either strand; ``(found, planted)``."""
+    spacers = [s for a in arrays for s in a["spacers"]]
+    found = sum(1 for s in spacers if s[6:-6] in report or _rc(s[6:-6]) in report)
+    return found, len(spacers)
+
+
+def reported_repeats(report: str) -> list:
+    """The repeat of every system of a ``CRISPR_Arrays.txt``: the line
+    between the two dashed lines that open the system."""
+    lines = report.splitlines()
+    dash = "-" * 50
+    return [
+        lines[i] for i in range(1, len(lines) - 1)
+        if lines[i - 1] == dash and lines[i + 1] == dash and lines[i]
+        and set(lines[i]) <= set("ACGT")
+    ]
+
+
+def arrays_found(arrays: list, report: str, errors: bool) -> int:
+    """Planted arrays with a system: on error-free reads the repeat less
+    its last base is in the report (a reference quirk); on error-bearing
+    reads a reported repeat shares a 23-mer with it, either strand (the
+    reference may move a repeat's ends a base or two)."""
+    if not errors:
+        return sum(1 for a in arrays
+                   if a["repeat"][:-1] in report or _rc(a["repeat"])[:-1] in report)
+    kmers = {r[i : i + K] for r in reported_repeats(report) for i in range(len(r) - K + 1)}
+    return sum(
+        1 for a in arrays
+        if any(a["repeat"][i : i + K] in kmers or _rc(a["repeat"])[i : i + K] in kmers
+               for i in range(len(a["repeat"]) - K + 1))
+    )
