@@ -46,12 +46,16 @@ the card; the CPU runs their plain versions), every planted array has a
 system (on error-free reads its repeat less the last base is reported;
 on error-bearing ones a reported repeat shares a 23-mer with it) and at
 least 98% (error-free) or 95% (error-bearing) of the planted spacer
-cores are found. A run that fails it is left out of the medians, and the
-command exits non-zero.
+cores are found (on the inputs of ``tests/torch_fragments.py``, the
+shares of arrays and spacers that the JAX package reports on the same
+arrays, less 2 points: ``truth_floor``). A run that fails it is left out of
+the medians, and the command exits non-zero.
 
 The one-card cells (the default) are ``planted-20x30``,
 ``planted-20x30-err-pe``, ``planted-20x30-40M``, ``sample-1.03B``,
-``sample-1.03B-err-pe`` and ``array-250``; ``planted-20x30-500M`` runs
+``sample-1.03B-err-pe``, ``array-250``, ``mixed-pe150`` and
+``sample-pe150`` (2x150-bp fragment pairs with trimmed mates, N bases
+and errors rising along a mate); ``planted-20x30-500M`` runs
 only when named, on four cards, one shard a card. ``--quick`` shrinks Part 1 and
 runs the small ``golden`` and ``planted-tiny`` cells (two warm runs) for a
 check on the CPU.
@@ -357,6 +361,9 @@ class CellInput:
     arrays: list | None = None  # the planted truth, when there is one
     errors: bool = False  # substitutions in the reads
     expected: bytes | None = None  # the committed report, when there is one
+    # (arrays with a system, share of the spacers) to reach, when not every
+    # array and 98% / 95%
+    floor: tuple[int, float] | None = None
 
 
 @dataclass
@@ -365,15 +372,22 @@ class Cell:
     make: Callable[[str], CellInput]  # writes the input into a folder
     cards: int = 1
     systems_over_24: int = 0  # systems that launch each report kernel once on the card
+    # partial_ratio's launches where the substring filter cuts systems to 24
+    # spacers or fewer (it runs first); systems_over_24 where it is None
+    filtered_over_24: int | None = None
 
 
 def want_launches(cell: Cell, device) -> dict:
     """The launches of each report kernel a run of the cell must count:
     ``ratio_matrix`` and ``partial_ratio`` once a system of more than 24
-    spacers on the card (``ReportAnalyzer.BATCH_THRESHOLD``), the per-pair
-    kernel never; none on the CPU, which runs their plain versions."""
-    n = cell.systems_over_24 if device.type == "cuda" else 0
-    return {"lcs_ratio": 0, "partial_ratio": n, "ratio_matrix": n}
+    spacers on the card (``CRISPRAnalyzer.BATCH_THRESHOLD``; ``partial_ratio``
+    also for a system its substring filter then cuts to 24 or fewer), the
+    per-pair kernel never; none on the CPU, which runs their plain versions."""
+    if device.type != "cuda":
+        return {"lcs_ratio": 0, "partial_ratio": 0, "ratio_matrix": 0}
+    n = cell.systems_over_24
+    return {"lcs_ratio": 0, "partial_ratio": n if cell.filtered_over_24 is None
+            else cell.filtered_over_24, "ratio_matrix": n}
 
 
 def _matrix_cell(**call) -> Callable[[str], CellInput]:
@@ -394,6 +408,17 @@ def _named_cell(name: str) -> Callable[[str], CellInput]:
 
         got = make_named(name, folder)
         return CellInput(got["files"], got["n_reads"], got["arrays"], errors=True)
+
+    return make
+
+
+def _fragment_cell(name: str) -> Callable[[str], CellInput]:
+    def make(folder: str) -> CellInput:
+        from torch_fragments import make_named, truth_floor
+
+        got = make_named(name, folder)
+        return CellInput(got["files"], got["n_reads"], got["arrays"], errors=True,
+                         floor=truth_floor(name))
 
     return make
 
@@ -453,6 +478,13 @@ def _cells() -> dict:
                                     _named_cell("sample-1.03B-err-pe")),
         "array-250": Cell("tests/torch_big_array.py (one array of 250 spacers)", _array_250,
                           systems_over_24=1),
+        "mixed-pe150": Cell("tests/torch_fragments.py mixed-pe150 (2x150-bp fragment pairs, "
+                            "trimmed mates, N bases, 3'-rising substitutions; 40 arrays of 4-60 "
+                            "spacers in 10 Mbp)", _fragment_cell("mixed-pe150"),
+                            systems_over_24=14, filtered_over_24=15),
+        "sample-pe150": Cell("tests/torch_fragments.py sample-pe150 (the same reads; 400 arrays "
+                             "of 3-12 spacers, about 1.03B padded windows)",
+                             _fragment_cell("sample-pe150")),
         "planted-20x30-500M": Cell("scripts/torch_sharded_past_ceiling.py 500000000 --cards 4 "
                                    "(one process, --mesh auto, one shard a card)",
                                    _planted_500m, cards=4, systems_over_24=20),
@@ -464,7 +496,7 @@ def _cells() -> dict:
 
 
 ONE_CARD_CELLS = ("planted-20x30", "planted-20x30-err-pe", "planted-20x30-40M", "sample-1.03B",
-                  "sample-1.03B-err-pe", "array-250")
+                  "sample-1.03B-err-pe", "array-250", "mixed-pe150", "sample-pe150")
 QUICK_CELLS = ("golden", "planted-tiny")
 
 
@@ -554,10 +586,10 @@ def truth_failures(inp: CellInput, report: bytes) -> list:
     text = report.decode()
     n = arrays_found(inp.arrays, text, inp.errors)
     found, planted = spacer_recovery(inp.arrays, text)
-    need = 0.95 if inp.errors else 0.98
+    arrays, need = inp.floor or (len(inp.arrays), 0.95 if inp.errors else 0.98)
     bad = []
-    if n != len(inp.arrays):
-        bad.append(f"{n}/{len(inp.arrays)} planted arrays have a system")
+    if n < arrays:
+        bad.append(f"{n}/{len(inp.arrays)} planted arrays have a system, under {arrays}")
     if found < need * planted:
         bad.append(f"{found}/{planted} spacers found, under {need:.0%}")
     return bad

@@ -132,12 +132,29 @@ Phases (any failure exits non-zero):
     ``bench.py``'s set and of a cell, its gate passed, its planted-20x30
     report has the SHA-1 of phase 5's, its cells launched ``ratio_matrix``
     and ``partial_ratio`` 20 + 20 and 1 + 1 times, and kp 8's node table
-    equals kp 1's; the medians and quartiles are printed.
+    equals kp 1's; the medians and quartiles are printed;
+24. a metagenome as Illumina sequences it (``tests/torch_fragments.py``:
+    2x150-bp fragment pairs, 32% of the mates trimmed, 2% below k + 1,
+    N bases, substitutions rising from 0.1% to 1% along a mate, arrays of
+    23-47-base repeats, 23-47-base spacers and 3-60 spacers):
+    mixed-pe150-small's SHA-1, then its report against the JAX-written
+    ``tests/torch_data/pe150_small/CRISPR_Arrays.txt``, byte for byte;
+    then mixed-pe150 through the CLI entry point in one pass, in row
+    parts, on 4 shards of the card and gzipped: the four reports
+    byte-identical, at least the shares of arrays and spacers that the JAX
+    package reports on the same arrays less 2 points (``truth_floor``),
+    ``ratio_matrix`` and ``partial_ratio`` launched once for each call of
+    the report's batched route (at least once for each reported system of
+    more than 24 spacers, and some systems under it, so both report
+    routes run), held against their plain versions and timed on the
+    largest table, the unequal-length pairs they scored, nodes, unique
+    (k+1)-mers, the device peak per padded and per real window, adjacency
+    chunks, mate 2's reverse complement and the ordering pool's seconds.
 
 Each path after phase 6 reads its own launch counts (zeroed just before
 it) and fails when ``ratio_matrix`` or ``partial_ratio`` is 0 (phases 18
 and 22, whose 6-spacer systems stay under the batched report, print
-theirs); the kernels' inputs on phases 8, 10, 12, 20 and 21 are held
+theirs); the kernels' inputs on phases 8, 10, 12, 20, 21 and 24 are held
 against the plain versions too. The per-pair kernel serves the public ``ratio_batch`` and
 ``lcs_batch`` and no pipeline path: phases 3 and 6 launch it, and fail
 when they did not, and phase 16 drives ``lcs_batch`` with the counts
@@ -2206,12 +2223,151 @@ def main() -> int:
                                          "launches", "report_sha1", "gate")}
                    for n, c in cells.items()})
 
+    def unequal_pairs(seen: dict) -> dict:
+        """The pairs of unequal lengths each report kernel scored on a path,
+        beside all it scored (``ratio_matrix``: the pairs i < j of each
+        table; ``partial_ratio``: every (short, long) pair)."""
+        out = {"partial_ratio": [0, 0], "ratio_matrix": [0, 0]}
+        for _codes, lengths, s_idx, l_idx in seen.get("partial_ratio", []):
+            out["partial_ratio"][0] += int((lengths[s_idx.long()] != lengths[l_idx.long()]).sum())
+            out["partial_ratio"][1] += int(s_idx.numel())
+        for _codes, lengths in seen.get("ratio_matrix", []):
+            n = int(lengths.numel())
+            i, j = torch.triu_indices(n, n, 1, device=lengths.device)
+            out["ratio_matrix"][0] += int((lengths[i] != lengths[j]).sum())
+            out["ratio_matrix"][1] += n * (n - 1) // 2
+        return out
+
+    def systems_over(report: str, threshold: int = 24) -> int:
+        """Systems of a report with more than ``threshold`` spacers (its last
+        "Number of Spacers" line is the total)."""
+        counts = [int(line.split(": ")[1]) for line in report.splitlines()
+                  if line.startswith("Number of Spacers: ")][:-1]
+        return sum(c > threshold for c in counts)
+
+    pe150: dict = {}
+
+    @phase("24 mixed-pe150 (2x150-bp fragment pairs, trimmed, N bases, 3'-rising errors, "
+           "varied arrays): the small fixture, then one pass, row parts, 4 shards, gzipped")
+    def p24():
+        import torch_fragments as tfr
+
+        from mcaat_tpu_torch.cli import run_cli
+        from mcaat_tpu_torch.graph import dbg
+
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix="mcaat_smoke_pe150_")
+        scratch.append(tmp)
+        small = tfr.make_named(tfr.FIXTURE_INPUT, os.path.join(tmp, "small"))
+        if small["sha1"] != tfr.fixture_sha1():
+            fail(f"the input generator drifted: {tfr.FIXTURE_INPUT} has SHA-1 {small['sha1']}, "
+                 f"the fixture's input {tfr.fixture_sha1()}")
+        seen: dict = {}
+        with lcs_run(lcs_cuda, seen) as lcs:
+            _result, _text, wall = quiet_cli(run_cli, [
+                "--input-files", *small["files"], "--output-folder",
+                os.path.join(tmp, "small_out"), "--mesh", "off",
+            ], "cli_pe150_small.log")
+        with open(os.path.join(tmp, "small_out", "CRISPR_Arrays.txt"), "rb") as fh:
+            if fh.read() != tfr.fixture_report():
+                fail("the report of mixed-pe150-small differs from "
+                     "tests/torch_data/pe150_small/CRISPR_Arrays.txt")
+        need_launches("mixed-pe150-small", lcs["launches"])
+        hold_recorded(seen)
+        print(f"  mixed-pe150-small: {small['n_pairs']} pairs, SHA-1 as committed; report "
+              f"byte-identical to the JAX-written fixture; wall {wall:.2f}s; launches "
+              f"{lcs['launches']}")
+        pe150["small"] = {"wall_s": wall, "launches": lcs["launches"]}
+
+        t0 = time.perf_counter()
+        plain = tfr.make_named("mixed-pe150", os.path.join(tmp, "plain"))
+        write_s = time.perf_counter() - t0
+        gz = tfr.make_named("mixed-pe150", os.path.join(tmp, "gz"), gz=True)
+        gz_s = time.perf_counter() - t0 - write_s
+        if gz["sha1"] != plain["sha1"]:
+            fail("the gzipped pair holds other FASTQ bytes than the plain pair")
+        arrays, n_reads = plain["arrays"], plain["n_reads"]
+        padded, real = plain["padded_windows"], plain["real_windows"]
+        min_arrays, min_share = tfr.truth_floor("mixed-pe150")
+        lo, hi = tfr.spacer_lengths(arrays)
+        print(f"  {plain['n_pairs']} pairs ({n_reads} mates, lengths {plain['length_counts']}), "
+              f"{plain['substitutions']} substitutions, {plain['n_bases']} N; {padded} padded "
+              f"and {real} real windows with RC ({1 - real / padded:.1%} padding); planted "
+              f"spacers {lo}-{hi} bases; written in {write_s:.1f}s, gzipped (level 1) in "
+              f"{gz_s:.1f}s; sha1 {plain['sha1']}")
+        ram = max(80.0 * padded / 4 / dbg.SINGLE_PASS_MAX_WINDOWS, 1.0)
+        reports = {}
+        for name, files, extra, n_shards in (
+            ("single", plain, ["--mesh", "off"], 0),
+            ("parted", plain, ["--mesh", "off", "--ram", f"{ram:.3f}G"], 0),
+            ("shards", plain, ["--mesh", "auto"], 4),
+            ("gz", gz, ["--mesh", "off"], 0),
+        ):
+            seen = {}
+            with shards(n_shards) if n_shards else contextlib.nullcontext(), \
+                    probe_pipeline() as probe, lcs_run(lcs_cuda, seen) as lcs:
+                result, text, wall = quiet_cli(run_cli, [
+                    "--input-files", *files["files"], "--output-folder",
+                    os.path.join(tmp, name), *extra,
+                ], f"cli_pe150_{name}.log")
+            with open(os.path.join(tmp, name, "CRISPR_Arrays.txt"), "rb") as fh:
+                reports[name] = fh.read()
+            fig = path_figures(name, result, probe, wall, n_reads, padded)
+            fig["build_bytes_per_real_window"] = fig["build_peak_bytes"] / real
+            found, n_spacers = spacer_recovery(arrays, result.report_text)
+            n_arrays = arrays_found(arrays, result.report_text, errors=True)
+            over = systems_over(result.report_text)
+            fig.update(arrays=n_arrays, spacers_found=found, launches=lcs["launches"],
+                       systems=len(result.found_systems), systems_over_24=over,
+                       batched_calls=probe["batched"], unequal_pairs=unequal_pairs(seen))
+            print(f"  {name}: {fig['build_bytes_per_real_window']:.2f} B a real window; systems "
+                  f"{fig['systems']} ({over} reported with more than 24 spacers), arrays with a "
+                  f"system {n_arrays}/{len(arrays)} (floor {min_arrays}), spacers "
+                  f"{found}/{n_spacers} (floor {min_share:.2%}), launches {lcs['launches']} for "
+                  f"{probe['batched']} calls of the batched route; unequal-length pairs scored "
+                  f"(of all): {fig['unequal_pairs']}")
+            if n_arrays < min_arrays or found < min_share * n_spacers:
+                fail(f"{name}: {n_arrays} arrays, {found}/{n_spacers} spacers")
+            for kname in PATH_KERNELS:
+                if lcs["launches"][kname] != probe["batched"][kname]:
+                    fail(f"{name}: {lcs['launches'][kname]} {kname} launches for "
+                         f"{probe['batched'][kname]} calls of the batched route")
+            if not over <= lcs["launches"]["ratio_matrix"] <= lcs["launches"]["partial_ratio"]:
+                fail(f"{name}: {over} systems of more than 24 spacers reported, launches "
+                     f"{lcs['launches']}")
+            if over == 0 or over == fig["systems"]:
+                fail(f"{name}: {over} of {fig['systems']} systems take the batched report: "
+                     "both report routes must run")
+            if fig["unequal_pairs"]["partial_ratio"][0] == 0:
+                fail(f"{name}: partial_ratio scored no pair of unequal lengths")
+            if fig["reverse_complement_reads"] != plain["n_pairs"]:
+                fail(f"{name}: mate 2 was not reverse-complemented once")
+            if n_shards and "Graph built (sharded over" not in text:
+                fail("--mesh auto with 4 shards did not take the sharded path")
+            hold_recorded(seen)
+            if name == "single":
+                pe150["tables"] = time_tables(seen)
+            pe150[name] = fig
+        if pe150["parted"]["count_parts"] < 2 or pe150["single"]["count_parts"] != 1:
+            fail(f"--ram {ram:.3f}G counted {pe150['parted']['count_parts']} parts, one pass "
+                 f"{pe150['single']['count_parts']}")
+        if len(set(reports.values())) != 1:
+            fail("the four reports differ: " + ", ".join(
+                f"{k} {len(v)} bytes" for k, v in reports.items()))
+        pe150.update(n_pairs=plain["n_pairs"], n_reads=n_reads, padded_windows=padded,
+                     real_windows=real, length_counts=plain["length_counts"],
+                     substitutions=plain["substitutions"], n_bases=plain["n_bases"],
+                     report_bytes=len(reports["single"]), write_s=write_s, gzip_s=gz_s)
+        print(f"  one pass, {pe150['parted']['count_parts']} row parts, 4 shards and the gzipped "
+              f"pair: one report of {len(reports['single'])} bytes; the kernels' inputs equal on "
+              f"the plain versions")
+
     scratch: list = []
     sharded: dict = {}
     big: dict = {}
     held: dict = {}
     phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18,
-              p19, p20, p21, p22, p23]
+              p19, p20, p21, p22, p23, p24]
     try:
         for i, run in enumerate(phases, start=1):
             if i not in skip:
@@ -2240,6 +2396,8 @@ def main() -> int:
                                         for k in ("single", "parted", "shards", "gz")},
             "21 planted-20x30-err-pe-1M": err1m["launches"][name],
             "22 sample-1.03B-err-pe": err1b["launches"][name],
+            "24 mixed-pe150": {"small": pe150["small"]["launches"][name], **{
+                k: pe150[k]["launches"][name] for k in ("single", "parted", "shards", "gz")}},
         }
 
     # no PyTorch call computes an LCS, a ratio or a partial_ratio: library_ms is null
@@ -2290,6 +2448,8 @@ def main() -> int:
             "launches_on_paths": on_paths("partial_ratio"),
             "array_250": array250["partial_ratio"],
             "planted_20x30_err_pe": err20["tables"]["partial_ratio"],
+            "mixed_pe150": dict(pe150["tables"]["partial_ratio"],
+                                unequal_pairs=pe150["single"]["unequal_pairs"]["partial_ratio"]),
         },
         {
             "name": "ratio_matrix",
@@ -2318,6 +2478,8 @@ def main() -> int:
             "launches_on_paths": on_paths("ratio_matrix"),
             "array_250": array250["ratio_matrix"],
             "planted_20x30_err_pe": err20["tables"]["ratio_matrix"],
+            "mixed_pe150": dict(pe150["tables"]["ratio_matrix"],
+                                unequal_pairs=pe150["single"]["unequal_pairs"]["ratio_matrix"]),
         },
     ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
                          "report_call_ms": main_path["call_ms"],
@@ -2332,7 +2494,8 @@ def main() -> int:
         "array_250": {k: array250[k] for k in ("wall", "spacers_found", "tables", "pairs")},
         "sample_1b": sample, "one_shard_count_budget": budget,
         "planted_20x30_err_pe": {k: v for k, v in err20.items() if k != "tables"},
-        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b, "bench_torch": bench}))
+        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b, "bench_torch": bench,
+        "mixed_pe150": {k: v for k, v in pe150.items() if k != "tables"}}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -4,7 +4,7 @@ the same arguments, seed and ``make_metagenome`` call.
 
 Usage:  python3 scripts/torch_e2e_big.py [n_arrays] [background_len]
             [background_coverage] [--error-rate E] [--error-seed S]
-            [--paired] [--gz] [--device cuda] [--json PATH]
+            [--paired] [--input NAME] [--gz] [--device cuda] [--json PATH]
 
 ``400 62000000 10.4`` gives 6.59M reads of 100 bases, about 1.03B
 (k+1)-mer windows with the reverse complements, a 124.7M-node graph and
@@ -14,7 +14,12 @@ give). ``--error-rate E`` substitutes each base with probability E
 (``--error-seed``, default 1), ``--paired`` writes two mate files (mate 2
 reverse-complemented) and ``--gz`` gzips them: ``--error-rate 0.005
 --paired`` is sample-1.03B-err-pe, ``--error-rate 0.01 --paired``
-sample-1.03B-err1-pe (``PERF.md`` §4). In order:
+sample-1.03B-err1-pe (``PERF.md`` §4). ``--input NAME`` takes a named
+input of ``tests/torch_fragments.py`` instead (2x150-bp fragment pairs
+with trimmed mates, N bases and errors rising along a mate; ``--gz``
+applies): ``--input sample-pe150`` is that file's 1.03B-window sample,
+whose windows are counted padded (the build's ``R x (Lmax - k) x 2``)
+and real (inside each mate). In order:
 
 1. ``run_pipeline`` twice in one process (cold, then warm) with
    ``--mesh off``: each stage's seconds, ``Profiler.to_json`` counters,
@@ -60,6 +65,8 @@ def parse_args(argv):
     ap.add_argument("--error-rate", type=float, default=0.0,
                     help="substitutions a base (tests/torch_reads.py)")
     ap.add_argument("--error-seed", type=int, default=1)
+    ap.add_argument("--input", help="a named input of tests/torch_fragments.py (two mate "
+                    "files) in place of the make_metagenome call")
     ap.add_argument("--paired", action="store_true", help="two mate files, mate 2 reverse-complemented")
     ap.add_argument("--gz", action="store_true", help="gzip the input files (level 1)")
     ap.add_argument("--device", default="cuda")
@@ -149,34 +156,49 @@ def main(argv=None) -> int:
     from mcaat_tpu_torch.settings import Settings
     from mcaat_tpu_torch.utils import wire
 
-    t0 = time.perf_counter()
-    arrays, reads = metagenome_matrix(
-        seed=7, n_arrays=args.n_arrays, n_spacers=6, background_len=args.background_len,
-        background_coverage=args.background_coverage, coverage=35.0,
-    )
-    t1 = time.perf_counter()
-    subs = add_substitutions(reads, args.error_rate, args.error_seed)
-    gen_s, err_s = t1 - t0, time.perf_counter() - t1
-    meta = {"arrays": arrays}
     tmp = tempfile.mkdtemp(prefix="mcaat_e2e_big_")
     t0 = time.perf_counter()
-    written = write_reads(tmp, reads, paired=args.paired, gz=args.gz)
+    if args.input:
+        from torch_fragments import make_named
+
+        written = make_named(args.input, tmp, gz=args.gz)
+        arrays, n_reads, subs = written["arrays"], written["n_reads"], written["substitutions"]
+        n_windows, real_windows = written["padded_windows"], written["real_windows"]
+        gen_s, err_s = time.perf_counter() - t0, 0.0
+        write_s = gen_s
+        print(f"generated {args.input}: {written['n_pairs']} pairs, {len(arrays)} arrays, mate "
+              f"lengths {written['length_counts']}, {n_windows} padded and {real_windows} real "
+              f"windows with RC, {subs} substitutions, {written['n_bases']} N"
+              f"{', gzipped' if args.gz else ''}, sha1 {written['sha1']} (made and written in "
+              f"{gen_s:.1f}s)", flush=True)
+    else:
+        arrays, reads = metagenome_matrix(
+            seed=7, n_arrays=args.n_arrays, n_spacers=6, background_len=args.background_len,
+            background_coverage=args.background_coverage, coverage=35.0,
+        )
+        t1 = time.perf_counter()
+        subs = add_substitutions(reads, args.error_rate, args.error_seed)
+        gen_s, err_s = t1 - t0, time.perf_counter() - t1
+        t0 = time.perf_counter()
+        written = write_reads(tmp, reads, paired=args.paired, gz=args.gz)
+        write_s = time.perf_counter() - t0
+        n_reads, read_len = reads.shape
+        del reads
+        # both strands, every (k+1)-window of a read of read_len bases
+        n_windows = real_windows = 2 * n_reads * (read_len - 23)
+        print(f"generated {n_reads} reads, {args.n_arrays} arrays, {n_windows} windows with RC, "
+              f"{subs} substitutions (rate {args.error_rate:g}), {len(written['files'])} file(s)"
+              f"{' gzipped' if args.gz else ''}, sha1 {written['sha1']} (generated in "
+              f"{gen_s:.1f}s, errors in {err_s:.1f}s, written in {write_s:.1f}s)", flush=True)
     fq = " ".join(written["files"])
-    write_s = time.perf_counter() - t0
-    n_reads, read_len = reads.shape
-    del reads
-    # both strands, every (k+1)-window of a read of read_len bases
-    n_windows = 2 * n_reads * (read_len - 23)
-    print(f"generated {n_reads} reads, {args.n_arrays} arrays, {n_windows} windows with RC, "
-          f"{subs} substitutions (rate {args.error_rate:g}), {len(written['files'])} file(s)"
-          f"{' gzipped' if args.gz else ''}, sha1 {written['sha1']} (generated in {gen_s:.1f}s, "
-          f"errors in {err_s:.1f}s, written in {write_s:.1f}s)", flush=True)
+    meta = {"arrays": arrays}
     out: dict = {
         "argv": [args.n_arrays, args.background_len, args.background_coverage],
-        "error_rate": args.error_rate, "error_seed": args.error_seed, "paired": args.paired,
-        "gz": args.gz, "substitutions": subs, "input_sha1": written["sha1"],
-        "card": card, "device": str(device), "n_reads": n_reads, "n_windows": n_windows,
-        "generate_s": gen_s, "errors_s": err_s, "write_s": write_s, "runs": {},
+        "input": args.input, "error_rate": args.error_rate, "error_seed": args.error_seed,
+        "paired": args.paired, "gz": args.gz, "substitutions": subs,
+        "input_sha1": written["sha1"], "card": card, "device": str(device), "n_reads": n_reads,
+        "n_windows": n_windows, "real_windows": real_windows, "generate_s": gen_s,
+        "errors_s": err_s, "write_s": write_s, "runs": {},
     }
 
     def one_run(name: str, **settings_kw):
@@ -209,6 +231,7 @@ def main(argv=None) -> int:
             "count_parts": probe["count_parts"], "nodes": nodes,
             "unique_edges": probe["unique_edges"] or None,
             "build_peak_bytes_per_window": build_peak / n_windows if build_peak else None,
+            "build_peak_bytes_per_real_window": build_peak / real_windows if build_peak else None,
             "build_peak_bytes_per_node": build_peak / nodes if build_peak and nodes else None,
             "reverse_complement_s": probe["rc_s"], "reverse_complement_reads": probe["rc_reads"],
             "ordering_pool_s": probe["ordering_pool_s"], "subproblems": probe["subproblems"],
@@ -224,7 +247,8 @@ def main(argv=None) -> int:
               f"{fig['adjacency_chunks']}, count parts {fig['count_parts']} ({card})",
               flush=True)
         if nodes:
-            per = (f", build peak {fig['build_peak_bytes_per_window']:.2f} B a window and "
+            per = (f", build peak {fig['build_peak_bytes_per_window']:.2f} B a window "
+                   f"({fig['build_peak_bytes_per_real_window']:.2f} a real one) and "
                    f"{fig['build_peak_bytes_per_node']:.1f} B a node" if build_peak else "")
             print(f"   nodes {nodes}, unique (k+1)-mers {fig['unique_edges']}{per}; "
                   f"reverse_complement_batch {fig['reverse_complement_s']:.2f}s on "
@@ -237,7 +261,7 @@ def main(argv=None) -> int:
             print(f"   {st['name']:<16} {st['seconds']:8.3f}s  peak "
                   f"{'-' if peak is None else f'{peak / 1024:.2f} GiB'}  rss {st['rss_mb']:.0f} MB  "
                   f"{st['counters']}", flush=True)
-        print(f"   systems {fig['systems']}/{args.n_arrays} planted, arrays with every spacer "
+        print(f"   systems {fig['systems']}/{len(meta['arrays'])} planted, arrays with every spacer "
               f"{full}, spacers recovered {hits}/{total}", flush=True)
         if fig["card_peaks_bytes"]:
             print("   card peaks: " + ", ".join(
@@ -281,6 +305,22 @@ def main(argv=None) -> int:
             ok = False
     finally:
         del os.environ["MCAAT_TORCH_SHARDS"]
+    if args.input:  # the truth rules of chip_smoke.py phase 24
+        from torch_fragments import truth_floor
+        from torch_probes import arrays_found
+
+        found = arrays_found(arrays, ref.decode(), errors=True)
+        min_arrays, min_share = truth_floor(args.input)
+        cold = out["runs"]["cold"]
+        out["arrays_with_a_system"] = found
+        print(f"arrays with a system (a shared 23-mer) {found}/{len(arrays)} (floor "
+              f"{min_arrays}); spacers {cold['spacers_recovered']}/{cold['spacers_planted']} "
+              f"(floor {min_share:.2%}); the floors are the JAX package's on the same arrays",
+              flush=True)
+        if found < min_arrays or \
+                cold["spacers_recovered"] < min_share * cold["spacers_planted"]:
+            print("the report misses planted arrays or spacers", flush=True)
+            ok = False
     out["report_bytes"] = len(ref)
     out["reports_identical"] = ok
     print(json.dumps({k: v for k, v in out.items() if k != "runs"}), flush=True)

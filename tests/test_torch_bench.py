@@ -202,10 +202,14 @@ def test_gate_holds_every_run_to_the_cells_launches():
     want = {n: bench_torch.want_launches(c, cuda)["ratio_matrix"] for n, c in cells.items()}
     assert want == {"planted-20x30": 20, "planted-20x30-err-pe": 20, "planted-20x30-40M": 20,
                     "sample-1.03B": 0, "sample-1.03B-err-pe": 0, "array-250": 1,
-                    "planted-20x30-500M": 20, "golden": 0, "planted-tiny": 0}
-    for c in cells.values():
+                    "mixed-pe150": 14, "sample-pe150": 0, "planted-20x30-500M": 20,
+                    "golden": 0, "planted-tiny": 0}
+    for name, c in cells.items():
         got = bench_torch.want_launches(c, cuda)
-        assert got["partial_ratio"] == got["ratio_matrix"] and got["lcs_ratio"] == 0
+        # one system of mixed-pe150 enters the substring filter with more than 24 spacers
+        # and leaves it with fewer: it launches partial_ratio and not ratio_matrix
+        extra = 1 if name == "mixed-pe150" else 0
+        assert got["partial_ratio"] == got["ratio_matrix"] + extra and got["lcs_ratio"] == 0
         assert set(bench_torch.want_launches(c, CPU).values()) == {0}
 
     inp = bench_torch.CellInput(["x"], 10, None, expected=b"report")
@@ -228,6 +232,52 @@ def test_gate_holds_every_run_to_the_cells_launches():
                                 [b"report"] * 3, twenty)
     assert one["gate"] == [f"run 1: launched {dict(twenty, partial_ratio=19)}, not {twenty}"]
     assert one["wall_s"]["n"] == 1 and one["cold_s"] == 1.0
+
+
+def test_fragment_cells_follow_the_others_on_one_card():
+    """mixed-pe150 and sample-pe150 (``tests/torch_fragments.py``) come
+    after the cells that were there, take one card, and hold every run to
+    the launches of their systems of more than 24 spacers (14 of
+    mixed-pe150's reported systems, and one more that the substring filter
+    cuts below 25 after ``partial_ratio`` scored it; none of sample-pe150's
+    3-12-spacer arrays) and their truth to what the JAX package reports on
+    the same arrays."""
+    from torch_fragments import INPUTS, truth_floor
+
+    assert bench_torch.ONE_CARD_CELLS == (
+        "planted-20x30", "planted-20x30-err-pe", "planted-20x30-40M", "sample-1.03B",
+        "sample-1.03B-err-pe", "array-250", "mixed-pe150", "sample-pe150")
+    cells = bench_torch._cells()
+    cuda = torch.device("cuda")
+    for name, filtered, over in (("mixed-pe150", 15, 14), ("sample-pe150", 0, 0)):
+        assert cells[name].cards == 1 and cells[name].systems_over_24 == over
+        assert bench_torch.want_launches(cells[name], cuda) == {
+            "lcs_ratio": 0, "partial_ratio": filtered, "ratio_matrix": over}
+    # the floor of these inputs: the JAX package's arrays and its share of spacers less 2 points
+    rng = np.random.default_rng(0)
+    repeats = ["".join("ACGT"[b] for b in rng.integers(0, 4, 30)) for _ in range(2)]
+    spacers = ["".join("ACGT"[b] for b in rng.integers(0, 4, 34)) for _ in range(100)]
+    arrays = [{"repeat": r, "spacers": spacers[50 * i : 50 * i + 50]}
+              for i, r in enumerate(repeats)]
+    dash = "-" * 50
+
+    def report(n_arrays, n_spacers):
+        lines = ["x"]
+        for r in repeats[:n_arrays]:
+            lines += [dash, r[:-1], dash]
+        return "\n".join(lines + spacers[:n_spacers]).encode()
+
+    for floor in ((2, 0.9), (1, 0.9)):
+        inp = bench_torch.CellInput(["x"], 1, arrays, errors=True, floor=floor)
+        assert bench_torch.truth_failures(inp, report(2, 90)) == []
+        assert bench_torch.truth_failures(inp, report(2, 89))
+        assert bool(bench_torch.truth_failures(inp, report(1, 90))) == (floor[0] == 2)
+    plain = bench_torch.CellInput(["x"], 1, arrays, errors=True)
+    assert bench_torch.truth_failures(plain, report(2, 95)) == []
+    assert bench_torch.truth_failures(plain, report(2, 94))
+    for name in ("mixed-pe150", "sample-pe150"):
+        arrays_floor, share = truth_floor(name)
+        assert 0 < arrays_floor <= INPUTS[name]["n_arrays"] and 0.85 < share < 0.98
 
 
 def test_spread_is_median_and_quartiles():
@@ -269,7 +319,7 @@ def test_bench_torch_imports_neither_jax_nor_mcaat_tpu():
     code = (
         "import sys, bench_torch\n"
         "bench_torch._cells()\n"
-        "import torch_probes, torch_big_array, torch_sharded_past_ceiling\n"
+        "import torch_probes, torch_big_array, torch_sharded_past_ceiling, torch_fragments\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'mcaat_tpu' or n.startswith('mcaat_tpu.'))\n"
         "print(bad)\n"

@@ -14,7 +14,14 @@ a module attribute for the length of a ``with`` block and puts it back.
 - ``rc_s`` and ``rc_reads``: seconds and reads of
   ``io/fastq.py::reverse_complement_batch`` (mate 2 of a paired run);
 - ``ordering_pool_s``, ``subproblems`` and ``cycles_per_subproblem``:
-  ``pipeline.py::_solve_subproblems``, the forked ordering pool.
+  ``pipeline.py::_solve_subproblems``, the forked ordering pool;
+- ``batched``: the report's calls that take the batched route, by the
+  kernel each launches on a card: ``partial_ratio`` for
+  ``CRISPRAnalyzer.filter_substring_spacers`` and ``ratio_matrix`` for
+  ``validate_spacer_diversity``, each given more than ``BATCH_THRESHOLD``
+  strings of at most 64 bases (a system the substring or length filter
+  then cuts to 24 or fewer spacers launches the first and not the
+  second).
 
 ``probe_sharded_count(device)`` yields the sharded build's count budget
 (``parallel/sharded_graph.py``):
@@ -29,7 +36,8 @@ a module attribute for the length of a ``with`` block and puts it back.
 
 The truth rules: :func:`spacer_recovery` (``bench.py``'s core rule),
 :func:`arrays_found` (the exact repeat on error-free reads, a shared
-23-mer on error-bearing ones) and :func:`reported_repeats`.
+23-mer on error-bearing ones, less for a repeat under 25 bases) and
+:func:`reported_repeats`.
 """
 
 from __future__ import annotations
@@ -65,10 +73,19 @@ def probe_pipeline():
     from mcaat_tpu_torch.graph import dbg
     from mcaat_tpu_torch.io import fastq
     from mcaat_tpu_torch.kmer import count as kcount
+    from mcaat_tpu_torch.report.analyzer import CRISPRAnalyzer
 
     got = {"adjacency_chunks": 0, "count_parts": 0, "unique_edges": 0, "rc_s": 0.0,
            "rc_reads": 0, "ordering_pool_s": 0.0, "subproblems": 0,
-           "cycles_per_subproblem": []}
+           "cycles_per_subproblem": [], "batched": {"partial_ratio": 0, "ratio_matrix": 0}}
+
+    def batched(kernel):
+        def after(a, _out, _s):
+            analyzer, strings = a
+            if len(strings) > analyzer.BATCH_THRESHOLD and all(len(x) <= 64 for x in strings):
+                got["batched"][kernel] += 1
+
+        return after
 
     def chunk(_a, _out, _s):
         got["adjacency_chunks"] += 1
@@ -94,6 +111,10 @@ def probe_pipeline():
         stack.enter_context(_wrapped(dbg, "count_edges_parts", edges))
         stack.enter_context(_wrapped(fastq, "reverse_complement_batch", rc))
         stack.enter_context(_wrapped(pipeline, "_solve_subproblems", pool))
+        stack.enter_context(_wrapped(CRISPRAnalyzer, "filter_substring_spacers",
+                                     batched("partial_ratio")))
+        stack.enter_context(_wrapped(CRISPRAnalyzer, "validate_spacer_diversity",
+                                     batched("ratio_matrix")))
         yield got
 
 
@@ -179,13 +200,20 @@ def arrays_found(arrays: list, report: str, errors: bool) -> int:
     """Planted arrays with a system: on error-free reads the repeat less
     its last base is in the report (a reference quirk); on error-bearing
     reads a reported repeat shares a 23-mer with it, either strand (the
-    reference may move a repeat's ends a base or two)."""
+    reference may move a repeat's ends a base or two). A repeat of fewer
+    than 25 bases need share only its length less two: the quirk alone
+    leaves a 23-base repeat no 23-mer of its own."""
     if not errors:
         return sum(1 for a in arrays
                    if a["repeat"][:-1] in report or _rc(a["repeat"])[:-1] in report)
-    kmers = {r[i : i + K] for r in reported_repeats(report) for i in range(len(r) - K + 1)}
-    return sum(
-        1 for a in arrays
-        if any(a["repeat"][i : i + K] in kmers or _rc(a["repeat"])[i : i + K] in kmers
-               for i in range(len(a["repeat"]) - K + 1))
-    )
+    reported = reported_repeats(report)
+    kmers: dict = {}
+
+    def shared(repeat: str) -> bool:
+        k = min(K, len(repeat) - 2)
+        if k not in kmers:
+            kmers[k] = {r[i : i + k] for r in reported for i in range(len(r) - k + 1)}
+        return any(repeat[i : i + k] in kmers[k] or _rc(repeat)[i : i + k] in kmers[k]
+                   for i in range(len(repeat) - k + 1))
+
+    return sum(1 for a in arrays if shared(a["repeat"]))

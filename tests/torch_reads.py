@@ -143,8 +143,9 @@ def split_mates(reads: np.ndarray):
     return reads[:half], reverse_complement_matrix(reads[half:])
 
 
-def _fastq_blocks(reads: np.ndarray, block_rows: int):
-    """The bytes of ``synthetic.write_fastq(path, reads)``, block by block."""
+def _fastq_blocks(reads: np.ndarray, block_rows: int, lengths: np.ndarray | None = None):
+    """The bytes of ``synthetic.write_fastq(path, reads)``, block by block;
+    with ``lengths``, each row cut to its length."""
     n, read_len = reads.shape
     # records of one width for every i of one digit count
     d, lo = 1, 0
@@ -162,21 +163,30 @@ def _fastq_blocks(reads: np.ndarray, block_rows: int):
             rec[:, 6 + d + read_len : 9 + d + read_len] = np.frombuffer(b"\n+\n", np.uint8)
             rec[:, 9 + d + read_len : -1] = ord("I")
             rec[:, -1] = 10
-            yield rec.tobytes()
+            if lengths is None:
+                yield rec.tobytes()
+                continue
+            # the records at full width, less the bytes past each row's length
+            short = np.arange(read_len)[None, :] >= lengths[a:b, None]
+            keep = np.ones(rec.shape, dtype=bool)
+            keep[:, 6 + d : 6 + d + read_len] = ~short
+            keep[:, 9 + d + read_len : -1] = ~short
+            yield rec[keep].tobytes()
         d, lo = d + 1, hi
 
 
 def write_fastq_matrix(path: str, reads: np.ndarray, gz: bool = False,
-                       block_rows: int = 1 << 20) -> str:
+                       block_rows: int = 1 << 20, lengths: np.ndarray | None = None) -> str:
     """Write ``reads`` as ``synthetic.write_fastq`` would
-    (``@read{i}\\n{seq}\\n+\\n{'I' * len(seq)}\\n``), gzipped at level 1
-    (no name, time 0) with ``gz``. Returns the SHA-1 of the FASTQ bytes."""
+    (``@read{i}\\n{seq}\\n+\\n{'I' * len(seq)}\\n``; with ``lengths``, each
+    row cut to its length), gzipped at level 1 (no name, time 0) with
+    ``gz``. Returns the SHA-1 of the FASTQ bytes."""
     sha = hashlib.sha1()
     with open(path, "wb") as raw, (
         gzip.GzipFile(filename="", mode="wb", compresslevel=1, fileobj=raw, mtime=0)
         if gz else contextlib.nullcontext(raw)
     ) as fh:
-        for data in _fastq_blocks(reads, block_rows):
+        for data in _fastq_blocks(reads, block_rows, lengths):
             sha.update(data)
             fh.write(data)
     return sha.hexdigest()
