@@ -1,0 +1,7 @@
+"""Seconds of the program's ``cycle_search`` stage a sample, over the window."""
+
+from benchmark.stages import mean_stage_s
+
+
+def read(run):
+    return mean_stage_s(run, "cycle_search")
