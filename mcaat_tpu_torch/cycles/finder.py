@@ -295,75 +295,80 @@ def find_cycles(
         self_reachable_batch,
     )
     from mcaat_tpu_torch.prune.prune import clip_tips, invalidate_low_multiplicity
-    from mcaat_tpu_torch.utils.profiling import tick_printer
+    from mcaat_tpu_torch.utils.profiling import count, span
 
     dev = graph.device
-    _tick = tick_printer("cycles", verbose, dev)
+    sync_dev = dev if verbose else None
 
     lazy_clip = not full_prune and graph.size >= LAZY_CLIP_MIN_NODES
     if lazy_clip:
-        graph, n_mult = invalidate_low_multiplicity(graph)
+        with span("mult_filter", device=sync_dev):
+            graph, n_mult = invalidate_low_multiplicity(graph)
         if verbose:
             print(
                 f"Graph size: {graph.size} nodes; "
                 f"tip clipping deferred to the candidate neighborhood"
             )
             print(f"Pre-filter: invalidated {n_mult} node(s) with multiplicity <= 1.")
-        _tick("mult filter")
     else:
-        graph = prune_graph(graph, verbose=verbose)
-        _tick("prune")
+        with span("prune", device=sync_dev):
+            graph = prune_graph(graph, verbose=verbose)
     n = graph.size
     if n >= NEIGHBORHOOD_MIN_NODES:
-        cand = candidate_ids(graph, threshold_multiplicity)
+        with span("candidate_scan", device=sync_dev):
+            cand = candidate_ids(graph, threshold_multiplicity)
+            count(candidates=len(cand))
         if verbose:
             print(f"ChunkStartNodes: {len(cand)} candidates pass the static filter")
-        _tick("candidate scan")
         if len(cand) == 0:
             return graph, {}
-        mask = touched_mask(graph.out, graph.valid, cand, cycle_max_length, n)
-        _tick("touched mask (union BFS)")
+        with span("touched_mask", device=sync_dev):
+            mask = touched_mask(graph.out, graph.valid, cand, cycle_max_length, n)
         if mask is not None:
-            out_h, in_h, valid_h, mult_h, gids = extract_subgraph(graph, mask)
-            if verbose:
-                print(
-                    f"Neighborhood extraction: {len(gids)}/{n} nodes "
-                    f"touched by {len(cand)} start nodes"
+            with span("extraction", device=sync_dev):
+                out_h, in_h, valid_h, mult_h, gids = extract_subgraph(graph, mask)
+                if verbose:
+                    print(
+                        f"Neighborhood extraction: {len(gids)}/{n} nodes "
+                        f"touched by {len(cand)} start nodes"
+                    )
+                sub = DBG.from_numpy(
+                    graph.k, np.zeros(len(gids), np.int64), mult_h, out_h, in_h,
+                    valid_h, dev,
                 )
-            _tick("subgraph extraction")
-            sub = DBG.from_numpy(
-                graph.k, np.zeros(len(gids), np.int64), mult_h, out_h, in_h,
-                valid_h, dev,
-            )
             if lazy_clip:
                 # deferred tip clip, at neighbourhood scale
-                sub, n_clipped = clip_tips(sub)
-                valid_h = sub.valid.cpu().numpy()
+                with span("neighborhood_clip", device=sync_dev):
+                    sub, n_clipped = clip_tips(sub)
+                    valid_h = sub.valid.cpu().numpy()
                 if verbose:
                     print(f"Neighborhood tip clip: {n_clipped} node(s) clipped")
-                _tick("neighborhood clip")
-            loc_cand = np.searchsorted(gids, cand).astype(np.int64)
-            reach = self_reachable_batch(sub, loc_cand, cycle_max_length)
-            _tick("self-reach probes")
-            kept_loc = loc_cand[reach]
-            buckets_loc = bucket_start_nodes(kept_loc, mult_h[kept_loc], verbose=verbose)
-            results_loc = enumerate_on_arrays(
-                out_h, in_h, valid_h, mult_h, buckets_loc,
-                cycle_min_length, cycle_max_length, verbose=verbose,
-            )
-            _tick("enumeration")
-            return graph, _to_global(gids, results_loc)
+            with span("self_reach", device=sync_dev):
+                loc_cand = np.searchsorted(gids, cand).astype(np.int64)
+                reach = self_reachable_batch(sub, loc_cand, cycle_max_length)
+                kept_loc = loc_cand[reach]
+                count(start_nodes=len(kept_loc))
+            with span("enumeration", device=sync_dev):
+                buckets_loc = bucket_start_nodes(kept_loc, mult_h[kept_loc], verbose=verbose)
+                results_loc = enumerate_on_arrays(
+                    out_h, in_h, valid_h, mult_h, buckets_loc,
+                    cycle_min_length, cycle_max_length, verbose=verbose,
+                )
+                return graph, _to_global(gids, results_loc)
         if verbose:
             print("Neighborhood extraction overflowed; using full graph")
         if lazy_clip:
-            graph, _ = clip_tips(graph)
-            _tick("global clip (extraction fallback)")
-    buckets = select_start_nodes(
-        graph, threshold_multiplicity, cycle_max_length, verbose=verbose
-    )
-    results = enumerate_from_buckets(
-        graph, buckets, cycle_min_length, cycle_max_length, verbose=verbose
-    )
+            with span("global_clip", device=sync_dev):
+                graph, _ = clip_tips(graph)
+    with span("start_nodes", device=sync_dev):
+        buckets = select_start_nodes(
+            graph, threshold_multiplicity, cycle_max_length, verbose=verbose
+        )
+        count(start_nodes=sum(len(v) for v in buckets.values()))
+    with span("enumeration", device=sync_dev):
+        results = enumerate_from_buckets(
+            graph, buckets, cycle_min_length, cycle_max_length, verbose=verbose
+        )
     return graph, results
 
 

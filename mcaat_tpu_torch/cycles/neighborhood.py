@@ -12,7 +12,8 @@ region growth works the same way.
 The visited sets are bool ``[N + 1]`` tensors whose last slot takes the
 dead frontier entries (id ``N``) and is sliced off; the JAX package
 packed them into uint32 bitsets. Each BFS level is one iteration of a
-Python loop that ends with one host sync on its stop condition.
+Python loop that ends with one host sync on its stop condition, counted
+as ``bfs_levels`` (``utils/profiling.py::count``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from mcaat_tpu_torch.graph.dbg import DBG, _bucket_size
+from mcaat_tpu_torch.utils.profiling import count
 
 
 def _gather_rows(adj_flat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -64,6 +66,7 @@ def _union_reach_kernel(
     four = torch.arange(4, device=dev)
 
     for _depth in range(max_depth):
+        count(bfs_levels=1)
         if not bool((frontier[0] < N) & ~overflow):
             break
         f_live = frontier < N
@@ -175,6 +178,7 @@ def _undirected_region_steps(
     four = torch.arange(4, device=out.device)
     overflow = torch.zeros((), dtype=torch.bool, device=out.device)
     for _depth in range(levels):
+        count(bfs_levels=1)
         if not bool((frontier[0] < N) & ~overflow):
             break
         f_live = frontier < N

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from mcaat_tpu_torch.graph.dbg import DBG
+from mcaat_tpu_torch.utils.profiling import count
 
 
 def _self_reach_kernel(
@@ -52,6 +53,7 @@ def _self_reach_kernel(
 
     for _depth in range(max_depth):
         # early exit: every lane either found its cycle or its frontier died
+        count(bfs_levels=1)
         if not bool((~found & (frontier[:, 0] < N)).any()):
             break
         # found lanes stop expanding (kill their frontier)

@@ -504,10 +504,10 @@ def build_dbg_from_reads(
     ``[R]`` on the device, SENTINEL where len < k) for the read mapper's
     keep predicate.
     """
-    from mcaat_tpu_torch.utils.profiling import tick_printer
+    from mcaat_tpu_torch.utils.profiling import count, span
 
     dev = torch.device(device)
-    _tick = tick_printer("build", verbose, dev)
+    sync_dev = dev if verbose else None
     if chunk_windows is None:
         chunk_windows = SINGLE_PASS_MAX_WINDOWS
     if engine is None:
@@ -521,6 +521,7 @@ def build_dbg_from_reads(
     w24 = max(min(L - k, max_true - k), 0)
     strands = 2 if add_reverse_complement else 1
     n_windows = R * w24 * strands
+    count(windows=n_windows)
     rows = R
     if chunk_windows and n_windows > chunk_windows:
         if engine == "inst":
@@ -532,7 +533,7 @@ def build_dbg_from_reads(
         rows = max(chunk_windows // (max(w24, 1) * strands), 1)
     if engine == "inst":
         return _build_from_instances(
-            codes_np, lengths_np, k, add_reverse_complement, endpoints_out, dev, _tick
+            codes_np, lengths_np, k, add_reverse_complement, endpoints_out, dev, sync_dev
         )
     bounds = [(lo, min(lo + rows, R)) for lo in range(0, max(R, 1), rows)]
 
@@ -549,59 +550,65 @@ def build_dbg_from_reads(
     # the RC read's window multiset is the elementwise RC of the forward
     # windows, so no RC code matrix is ever built; the generator uploads
     # one part at a time and holds no reference to it
-    u24, c24, n24 = count_edges_parts(
-        (upload(lo, hi) for lo, hi in bounds), k, w_cap=w24,
-        add_rc=add_reverse_complement, verbose=verbose and len(bounds) > 1,
-        device=dev,
-    )
-    _tick(f"upload + edge count ({len(bounds)} part(s), {n24} unique)")
-    first = torch.cat(firsts)
-    last = torch.cat(lasts)
-    if endpoints_out is not None:
-        endpoints_out["first_km"] = first
-        endpoints_out["last_km"] = last
-    if add_reverse_complement:
-        # the RC strand's last k-window is the RC of the forward FIRST
-        last = torch.cat([last, revcomp_kmers(first, k)])
-    u_l, c_l, _n_l = count_unique(last)
-    del last
-    _tick("last-window count")
-    u23, c23, n23, u_id = derive_nodes_from_edges(u24, c24, u_l, c_l)
-    del c24, u_l, c_l
-    _tick(f"derive nodes ({n23} nodes)")
-    graph = build_dbg(u23, c23, u24, u_id, k=k)
-    _tick("adjacency")
+    with span("upload_count", device=sync_dev):
+        u24, c24, n24 = count_edges_parts(
+            (upload(lo, hi) for lo, hi in bounds), k, w_cap=w24,
+            add_rc=add_reverse_complement, verbose=verbose and len(bounds) > 1,
+            device=dev,
+        )
+        count(parts=len(bounds), unique_24mers=n24)
+    with span("last_window_count", device=sync_dev):
+        first = torch.cat(firsts)
+        last = torch.cat(lasts)
+        if endpoints_out is not None:
+            endpoints_out["first_km"] = first
+            endpoints_out["last_km"] = last
+        if add_reverse_complement:
+            # the RC strand's last k-window is the RC of the forward FIRST
+            last = torch.cat([last, revcomp_kmers(first, k)])
+        u_l, c_l, _n_l = count_unique(last)
+        del last
+    with span("derive_nodes", device=sync_dev):
+        u23, c23, n23, u_id = derive_nodes_from_edges(u24, c24, u_l, c_l)
+        del c24, u_l, c_l
+        count(nodes=n23)
+    with span("adjacency", device=sync_dev):
+        graph = build_dbg(u23, c23, u24, u_id, k=k)
     return graph
 
 
-def _build_from_instances(codes_np, lengths_np, k, add_rc, endpoints_out, dev, _tick) -> DBG:
+def _build_from_instances(codes_np, lengths_np, k, add_rc, endpoints_out, dev, sync_dev) -> DBG:
     """The "inst" engine of :func:`build_dbg_from_reads`: one pass, the
     RC strand as real code rows (consecutive windows of a row must be
     consecutive windows of a read, which the elementwise RC of the
-    forward windows is not)."""
-    codes_t = torch.as_tensor(codes_np, device=dev)
-    lengths_t = torch.as_tensor(lengths_np, device=dev)
-    if endpoints_out is not None:
-        # before the rows are doubled: they must align with the caller's
-        endpoints_out["first_km"] = extract_first_kmer(codes_t, lengths_t, k)
-        endpoints_out["last_km"] = extract_last_kmer(codes_t, lengths_t, k)
-    if add_rc:
-        codes_rc, lengths_rc = _reverse_complement_batch(codes_t, lengths_t)
-        codes_t = torch.cat([codes_t, codes_rc])
-        lengths_t = torch.cat([lengths_t, lengths_rc])
-        del codes_rc, lengths_rc
-    _tick("upload")
-    max_true = int(lengths_np.max()) if lengths_np.size else 0
-    R2, L = codes_t.shape
-    W = max(min(L, max_true) - k + 1, 0)
-    # the windows are handed over as a temporary: the count frees them
-    # as soon as they are sorted
-    u23, c23, n23, inst_id = count_unique_with_ids(
-        extract_kmers(codes_t, lengths_t, k, w_cap=W).reshape(-1)
-    )
-    _tick(f"window count with ids ({n23} nodes)")
-    out, in_ = _adjacency_from_instances(inst_id.reshape(R2, W), codes_t, lengths_t, n23, k=k)
-    _tick("adjacency")
+    forward windows is not). ``sync_dev``: the device each span waits for
+    when the profiler is verbose."""
+    from mcaat_tpu_torch.utils.profiling import count, span
+
+    with span("upload", device=sync_dev):
+        codes_t = torch.as_tensor(codes_np, device=dev)
+        lengths_t = torch.as_tensor(lengths_np, device=dev)
+        if endpoints_out is not None:
+            # before the rows are doubled: they must align with the caller's
+            endpoints_out["first_km"] = extract_first_kmer(codes_t, lengths_t, k)
+            endpoints_out["last_km"] = extract_last_kmer(codes_t, lengths_t, k)
+        if add_rc:
+            codes_rc, lengths_rc = _reverse_complement_batch(codes_t, lengths_t)
+            codes_t = torch.cat([codes_t, codes_rc])
+            lengths_t = torch.cat([lengths_t, lengths_rc])
+            del codes_rc, lengths_rc
+    with span("window_count", device=sync_dev):
+        max_true = int(lengths_np.max()) if lengths_np.size else 0
+        R2, L = codes_t.shape
+        W = max(min(L, max_true) - k + 1, 0)
+        # the windows are handed over as a temporary: the count frees them
+        # as soon as they are sorted
+        u23, c23, n23, inst_id = count_unique_with_ids(
+            extract_kmers(codes_t, lengths_t, k, w_cap=W).reshape(-1)
+        )
+        count(nodes=n23)
+    with span("adjacency", device=sync_dev):
+        out, in_ = _adjacency_from_instances(inst_id.reshape(R2, W), codes_t, lengths_t, n23, k=k)
     return DBG(
         k=k, kmers=u23, mult=c23, out=out, in_=in_,
         valid=torch.ones(n23, dtype=torch.bool, device=dev),

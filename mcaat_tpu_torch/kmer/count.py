@@ -21,7 +21,6 @@ int64 is arithmetic, so every right shift below is masked.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -379,45 +378,25 @@ def count_edges_parts(parts, k: int, w_cap: int | None = None,
 
 
 def _reduce_counted(counted, dev: torch.device, verbose: bool):
-    """Push each ``(u, c, n)`` of ``counted`` onto a merge stack, drain
-    it, and with ``verbose`` print the count and merge seconds of each
-    part and how many parts went to the host."""
-    from mcaat_tpu_torch.utils.profiling import sync
+    """Push each ``(u, c, n)`` of ``counted`` onto a merge stack and drain
+    it: the pushes' seconds are the timer ``part_merge``, the count of
+    parts that went to the host the counter ``host_spilled``, the drain
+    the span ``final_merge`` (each waits for ``dev`` when ``verbose`` and
+    the profiler is)."""
+    from mcaat_tpu_torch.utils.profiling import count, span, sync, timer
 
     stack: list = []
-    t_count = t_merge = 0.0
-    t0 = time.perf_counter()
-    pi = 0
-    for pi, (u, cnt, nu) in enumerate(counted, start=1):
+    for u, cnt, _nu in counted:
         if verbose:
             sync(dev)
-        tm = time.perf_counter()
-        _merge_stack_push(stack, u, cnt)
-        del u, cnt
-        if verbose:
-            sync(dev)
-        tm2 = time.perf_counter()
-        t_count += tm - t0
-        t_merge += tm2 - tm
-        if verbose:
-            print(
-                f"    [build]     part {pi}: count {tm - t0:.2f}s, "
-                f"merge {tm2 - tm:.2f}s ({nu} unique)",
-                flush=True,
-            )
-        t0 = time.perf_counter()
-    if verbose:
-        spilled = sum(1 for p in stack if p.spilled)
-        print(
-            f"    [build]   {pi} part counts: {t_count:.2f}s + interleaved merges: "
-            f"{t_merge:.2f}s (stack={len(stack)}, host-spilled={spilled})",
-            flush=True,
-        )
-    res = _merge_stack_drain(stack, dev)
-    if verbose:
-        sync(dev)
-        print(f"    [build]   final merge: {time.perf_counter() - t0:.2f}s", flush=True)
-    return res
+        with timer("part_merge"):
+            _merge_stack_push(stack, u, cnt)
+            del u, cnt
+            if verbose:
+                sync(dev)
+    count(host_spilled=sum(1 for p in stack if p.spilled))
+    with span("final_merge", device=dev if verbose else None):
+        return _merge_stack_drain(stack, dev)
 
 
 def count_kmers_for_reads(codes, lengths, k: int, device="cuda"):

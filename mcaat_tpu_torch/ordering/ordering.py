@@ -257,31 +257,31 @@ _HOST_GROW_MAX_NODES = 4_000_000
 def get_crispr_regions_extended_by_k(
     graph: DBG, k_hops: int, cycles: list[list[int]], verbose: bool = False
 ) -> tuple[DBG, list[Subgraph]]:
-    from mcaat_tpu_torch.utils.profiling import tick_printer
+    from mcaat_tpu_torch.utils.profiling import span
 
-    _t = tick_printer("  region split", verbose, graph.device)
+    sync_dev = graph.device if verbose else None
     if GROW_FRONTIER_MIN_NODES <= graph.size <= _HOST_GROW_MAX_NODES:
         # compact (condensed-region) graphs: copy the adjacency to the
         # host once (the SCC split needs out/valid anyway), grow there,
         # and push the shrunken validity back
-        h = graph.to_host()
-        out_h, valid_h = h.out, h.valid
-        _t("adjacency download")
-        seeds = np.unique(
-            np.asarray(sorted({int(v) for c in cycles for v in c}), dtype=np.int64)
-        )
-        reached = _region_mask_host_arrays(out_h, h.in_, valid_h, seeds, int(k_hops))
-        valid_h = valid_h & reached
-        graph = graph.with_valid(torch.as_tensor(valid_h, device=graph.device))
-        _t("keep_crispr growth (host)")
+        with span("adjacency_download", device=sync_dev):
+            h = graph.to_host()
+            out_h, valid_h = h.out, h.valid
+        with span("host_growth", device=sync_dev):
+            seeds = np.unique(
+                np.asarray(sorted({int(v) for c in cycles for v in c}), dtype=np.int64)
+            )
+            reached = _region_mask_host_arrays(out_h, h.in_, valid_h, seeds, int(k_hops))
+            valid_h = valid_h & reached
+            graph = graph.with_valid(torch.as_tensor(valid_h, device=graph.device))
     else:
-        graph = keep_crispr_regions_extended_by_k(graph, k_hops, cycles)
-        _t("keep_crispr growth")
-        out_h = graph.out.cpu().numpy().reshape(-1, 4)
-        valid_h = graph.valid.cpu().numpy()
-        _t("adjacency download")
-    subgraphs = divide_graph_into_subgraphs(out_h, valid_h)
-    _t("SCC + subgraph build")
+        with span("growth", device=sync_dev):
+            graph = keep_crispr_regions_extended_by_k(graph, k_hops, cycles)
+        with span("adjacency_download", device=sync_dev):
+            out_h = graph.out.cpu().numpy().reshape(-1, 4)
+            valid_h = graph.valid.cpu().numpy()
+    with span("scc_split", device=sync_dev):
+        subgraphs = divide_graph_into_subgraphs(out_h, valid_h)
     return graph, subgraphs
 
 

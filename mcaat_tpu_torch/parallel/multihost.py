@@ -298,7 +298,7 @@ def run_pipeline_multihost(settings, verbose: bool = True,
 
     mesh = make_global_mesh(device)
     pid, n_proc = mesh.proc, mesh.n_proc
-    prof = Profiler(mesh.local_devices)
+    prof = Profiler(mesh.local_devices, verbose=verbose and pid == 0)
     wire.reset()
 
     # per-process record ranges of every input file, kept for the mapper:

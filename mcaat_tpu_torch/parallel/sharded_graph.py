@@ -28,7 +28,6 @@ the same replicated query from every shard.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,6 +63,7 @@ from mcaat_tpu_torch.parallel.sharded import (
     split_rows,
 )
 from mcaat_tpu_torch.utils import wire
+from mcaat_tpu_torch.utils.profiling import count, span
 
 # the largest global id: the tag ``-2 - g`` must still fit int32
 _MAX_GID = (1 << 31) - 2
@@ -276,7 +276,9 @@ def build_sharded_dbg(
     shards``, and :func:`_sharded_adjacency` fills out/in.
 
     Buckets have their exact length, so nothing overflows and nothing is
-    retried.
+    retried. The phases are the spans ``count``, ``node_table`` and
+    ``adjacency`` (``utils/profiling.py``); ``verbose`` is the JAX
+    package's argument and prints nothing here.
     """
     codes = np.asarray(codes, dtype=np.uint8)
     lengths = np.asarray(lengths, dtype=np.int32)
@@ -301,51 +303,43 @@ def build_sharded_dbg(
     )
     n_parts = max((R_max + rows_per_part - 1) // rows_per_part, 1)
 
-    t0 = time.perf_counter()
     stack24: list = [[] for _ in range(n_local)]
     stack_l: list = [[] for _ in range(n_local)]
-    for pi in range(n_parts):
-        lo, hi = min(pi * rows_per_part, R), min((pi + 1) * rows_per_part, R)
-        rows = split_rows(mesh, codes[lo:hi], lengths[lo:hi])
-        a24, a_l = _sharded_route_part(mesh, rows, k, add_rc, w_cap)
-        del rows
+    with span("count"):
         n_max = 0
-        for i in range(n_local):
-            u, c, n = count_unique(a24[i])
-            a24[i] = None
-            _merge_stack_push(stack24[i], u, c)
-            n_max = max(n_max, n)
-            u, c, _n = count_unique(a_l[i])
-            a_l[i] = None
-            _merge_stack_push(stack_l[i], u, c)
-        if verbose:
-            print(
-                f"    [sbuild]  part {pi + 1}/{n_parts}: {n_max} max unique "
-                f"edges/local shard ({time.perf_counter() - t0:.2f}s)",
-                flush=True,
-            )
+        for pi in range(n_parts):
+            lo, hi = min(pi * rows_per_part, R), min((pi + 1) * rows_per_part, R)
+            rows = split_rows(mesh, codes[lo:hi], lengths[lo:hi])
+            a24, a_l = _sharded_route_part(mesh, rows, k, add_rc, w_cap)
+            del rows
+            for i in range(n_local):
+                u, c, n = count_unique(a24[i])
+                a24[i] = None
+                _merge_stack_push(stack24[i], u, c)
+                n_max = max(n_max, n)
+                u, c, _n = count_unique(a_l[i])
+                a_l[i] = None
+                _merge_stack_push(stack_l[i], u, c)
+        count(parts=n_parts, max_unique_edges_per_shard=n_max)
 
-    u24, u23, c23, u_id = [], [], [], []
-    for i, dev in enumerate(mesh.local_devices):
-        e, ce, _n = _merge_stack_drain(stack24[i], dev)
-        ul, cl, _n = _merge_stack_drain(stack_l[i], dev)
-        un, cn, _nn, uid = derive_nodes_from_edges(e, ce, ul, cl)
-        u24.append(e)
-        u23.append(un)
-        c23.append(cn.to(torch.int32))
-        u_id.append(uid)
-        del ce, ul, cl
-    n_live = _kp_ints(mesh, [int(u.shape[0]) for u in u23])
-    T = max(int(n_live.max()), 1)
-    _check_gid_range(kp, T)
-    if verbose:
-        print(
-            f"    [sbuild]  node table: {int(n_live.sum())} nodes, T={T} "
-            f"({time.perf_counter() - t0:.2f}s)",
-            flush=True,
-        )
+    with span("node_table"):
+        u24, u23, c23, u_id = [], [], [], []
+        for i, dev in enumerate(mesh.local_devices):
+            e, ce, _n = _merge_stack_drain(stack24[i], dev)
+            ul, cl, _n = _merge_stack_drain(stack_l[i], dev)
+            un, cn, _nn, uid = derive_nodes_from_edges(e, ce, ul, cl)
+            u24.append(e)
+            u23.append(un)
+            c23.append(cn.to(torch.int32))
+            u_id.append(uid)
+            del ce, ul, cl
+        n_live = _kp_ints(mesh, [int(u.shape[0]) for u in u23])
+        T = max(int(n_live.max()), 1)
+        _check_gid_range(kp, T)
+        count(nodes=int(n_live.sum()), stride=T)
 
-    out, in_ = _sharded_adjacency(mesh, u23, u24, u_id, k, T)
+    with span("adjacency"):
+        out, in_ = _sharded_adjacency(mesh, u23, u24, u_id, k, T)
     del u24, u_id
     return ShardedDBG(
         k=k, mesh=mesh, kmers=u23, mult=c23, out=out, in_=in_,

@@ -40,6 +40,7 @@ import torch
 
 from mcaat_tpu_torch.graph.dbg import DBG
 from mcaat_tpu_torch.parallel.exchange import all_gather_host, barrier, host_replicated
+from mcaat_tpu_torch.utils.profiling import count, span
 from mcaat_tpu_torch.parallel.sharded import (
     _owner_shift,
     default_devices,
@@ -339,28 +340,35 @@ def default_map_sources(
 ) -> list[MapSource]:
     """Parse-the-files fallback (one-process callers without a batch
     cache)."""
-    from mcaat_tpu_torch.io.fastq import read_encoded_batch, reverse_complement_batch
+    from mcaat_tpu_torch.io.fastq import read_encoded_batch
 
-    b2 = None
-    if fastq_file_2:
-        b2 = reverse_complement_batch(read_encoded_batch(fastq_file_2))
-    return _sources(sg.k, read_encoded_batch(fastq_file_1), b2)
+    with span("parse"):
+        b1 = read_encoded_batch(fastq_file_1)
+        b2 = read_encoded_batch(fastq_file_2) if fastq_file_2 else None
+    return _sources(sg.k, b1, _mate2_revcomp(b2))
+
+
+def _mate2_revcomp(b2):
+    """Mate 2's rows reverse-complemented (None without a mate 2)."""
+    from mcaat_tpu_torch.io.fastq import reverse_complement_batch
+
+    if b2 is None:
+        return None
+    with span("mate2_revcomp"):
+        count(revcomp_mates=b2.num_reads)
+        return reverse_complement_batch(b2)
 
 
 def sources_from_batches(sg: ShardedDBG, batches_by_path: dict,
                          fastq_file_1: str, fastq_file_2: str | None):
     """MapSources over ALREADY-PARSED batches: the pipeline parses each
     input once at build time and the mapper reuses the codes."""
-    from mcaat_tpu_torch.io.fastq import reverse_complement_batch
-
     if fastq_file_1 not in batches_by_path or (
         fastq_file_2 and fastq_file_2 not in batches_by_path
     ):
         return default_map_sources(sg, fastq_file_1, fastq_file_2)
-    b2 = None
-    if fastq_file_2:
-        b2 = reverse_complement_batch(batches_by_path[fastq_file_2])
-    return _sources(sg.k, batches_by_path[fastq_file_1], b2)
+    b2 = batches_by_path[fastq_file_2] if fastq_file_2 else None
+    return _sources(sg.k, batches_by_path[fastq_file_1], _mate2_revcomp(b2))
 
 
 def _exchange_chains(mesh, chains, keys: np.ndarray):
@@ -642,7 +650,6 @@ def run_sharded_downstream(
     """
     import json
     import os
-    import time
 
     from mcaat_tpu_torch.cycles.finder import cycles_map_to_cycles
     from mcaat_tpu_torch.pipeline import (
@@ -659,8 +666,8 @@ def run_sharded_downstream(
     mesh = sg.mesh
     dev = mesh.local_devices[0]
     configure_threads(settings.threads)
-    prof = profiler if profiler is not None else Profiler(mesh.local_devices)
-    t0 = time.time()
+    prof = profiler if profiler is not None else Profiler(mesh.local_devices, verbose=verbose)
+    t0 = prof.elapsed()
     result = PipelineResult()
     cfs = settings.cycle_finder_settings
 
@@ -795,7 +802,7 @@ def run_sharded_downstream(
         print(f"Saved in: {analyzer.output_path}")
         print("Stage timings:")
         print(prof.report())
-        print(f"Downstream time: {time.time() - t0:.2f}s")
+        print(f"Downstream time: {prof.elapsed() - t0:.2f}s")
     return result
 
 

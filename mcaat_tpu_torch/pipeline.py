@@ -19,7 +19,6 @@ run over several processes goes through ``parallel/multihost.py``.
 from __future__ import annotations
 
 import sys
-import time
 import zipfile
 import zlib
 from dataclasses import dataclass, field
@@ -45,7 +44,7 @@ from mcaat_tpu_torch.reads.mapper import get_reads
 from mcaat_tpu_torch.report.analyzer import CRISPRAnalyzer
 from mcaat_tpu_torch.settings import Settings
 from mcaat_tpu_torch.systems.extract import get_systems
-from mcaat_tpu_torch.utils.profiling import Profiler, tick_printer
+from mcaat_tpu_torch.utils.profiling import Profiler, count, span
 
 
 @dataclass
@@ -79,10 +78,12 @@ def _load_input_batches(settings: Settings) -> list:
 
     cache: dict = {}
     entries = []
-    for path in settings.input_file_list():
-        if path not in cache:
-            cache[path] = read_encoded_batch(path)
-        entries.append((path, cache[path]))
+    with span("parse"):
+        for path in settings.input_file_list():
+            if path not in cache:
+                cache[path] = read_encoded_batch(path)
+            entries.append((path, cache[path]))
+        count(reads=sum(b.num_reads for b in cache.values()))
     return entries
 
 
@@ -142,7 +143,8 @@ def build_graph_from_settings(
     dev = resolve_device(device)
     if batches is None:
         batches = _load_input_batches(settings)
-    codes, lengths = _concat_batches(batches)
+    with span("concat"):
+        codes, lengths = _concat_batches(batches)
     if _sharded_mode(settings, dev):
         return _build_graph_sharded(codes, lengths, settings, dev)
     # --ram scales the single-pass window budget (sized for an 80 GB
@@ -151,30 +153,32 @@ def build_graph_from_settings(
     if settings.ram_explicit and settings.ram and settings.ram < BUDGET_CARD_GB:
         chunk_windows = max(int(chunk_windows * settings.ram / BUDGET_CARD_GB), 2_000_000)
     eps_rows = {} if endpoints_out is not None else None
-    graph = build_dbg_from_reads(
-        codes,
-        lengths,
-        k=23,
-        add_reverse_complement=settings.add_reverse_complement,
-        chunk_windows=chunk_windows,
-        verbose=verbose,
-        endpoints_out=eps_rows,
-        device=dev,
-    )
+    with span("build", device=dev):
+        graph = build_dbg_from_reads(
+            codes,
+            lengths,
+            k=23,
+            add_reverse_complement=settings.add_reverse_complement,
+            chunk_windows=chunk_windows,
+            verbose=verbose,
+            endpoints_out=eps_rows,
+            device=dev,
+        )
     if endpoints_out is not None and eps_rows:
         # split the concatenated-row endpoint tensors back per input file
-        off = 0
-        for path, b in batches:
-            if not b.num_reads:
-                continue
-            endpoints_out.setdefault(
-                path,
-                (
-                    eps_rows["first_km"][off : off + b.num_reads],
-                    eps_rows["last_km"][off : off + b.num_reads],
-                ),
-            )
-            off += b.num_reads
+        with span("endpoints"):
+            off = 0
+            for path, b in batches:
+                if not b.num_reads:
+                    continue
+                endpoints_out.setdefault(
+                    path,
+                    (
+                        eps_rows["first_km"][off : off + b.num_reads],
+                        eps_rows["last_km"][off : off + b.num_reads],
+                    ),
+                )
+                off += b.num_reads
     return graph
 
 
@@ -228,7 +232,7 @@ def spacer_ordering_step(
     if not len(reads):
         return graph, found_systems
     read_chain_len = len(reads[0])
-    _tick = tick_printer("ordering", verbose, graph.device)
+    dev = graph.device
 
     if graph.size >= condense_min_nodes:
         from mcaat_tpu_torch.cycles.neighborhood import (
@@ -237,71 +241,73 @@ def spacer_ordering_step(
             undirected_region_mask,
         )
 
-        seeds = np.asarray(sorted({n for c in cycles for n in c}), dtype=np.int64)
-        _tick("cycle-node seed set")
-        if region_mask is not None:
-            mask = region_mask
-        else:
-            mask = undirected_region_mask(graph, seeds, read_chain_len, verbose=verbose)
-        _tick("region mask growth")
-        graph, gids = extract_region_graph(graph, mask)
-        _tick("region extract")
-        cycles, reads = remap_chains(gids, cycles, reads)
-        _tick("chain remap")
+        with span("seed_set", device=dev):
+            seeds = np.asarray(sorted({n for c in cycles for n in c}), dtype=np.int64)
+        with span("region_mask", device=dev):
+            if region_mask is not None:
+                mask = region_mask
+            else:
+                mask = undirected_region_mask(graph, seeds, read_chain_len, verbose=verbose)
+        with span("region_extract", device=dev):
+            graph, gids = extract_region_graph(graph, mask)
+        with span("chain_remap", device=dev):
+            cycles, reads = remap_chains(gids, cycles, reads)
         if verbose:
             print(f"  ▸ Region condensed to {len(gids)} nodes for the ordering stages")
         # lazy-clip completion: clip the condensed region so the growth and
         # SCC split below see post-clip validity. Output-preserving; the
         # proof is at mcaat_tpu/pipeline.py::spacer_ordering_step.
-        graph, _ = clip_tips(graph)
-        _tick("region condense")
+        with span("region_condense", device=dev):
+            graph, _ = clip_tips(graph)
     elif graph.size >= _finder.LAZY_CLIP_MIN_NODES:
         # a caller raised condense_min_nodes above the lazy-clip threshold:
         # complete the deferred clip globally
-        graph, _ = clip_tips(graph)
-        _tick("global clip (condense skipped)")
+        with span("global_clip", device=dev):
+            graph, _ = clip_tips(graph)
 
     if verbose:
         print("  ▸ Splitting into subproblems")
-    graph, subgraphs = get_crispr_regions_extended_by_k(
-        graph, read_chain_len, cycles, verbose=verbose
-    )
-    _tick("region split (SCC)")
+    with span("region_split", device=dev):
+        graph, subgraphs = get_crispr_regions_extended_by_k(
+            graph, read_chain_len, cycles, verbose=verbose
+        )
 
     if verbose:
         print("  🔄 Filtering subproblems:")
-    remaining = filter_subproblems(graph.size, subgraphs, reads, cycles)
+    with span("subproblem_filter", device=dev):
+        remaining = filter_subproblems(graph.size, subgraphs, reads, cycles)
+        count(subproblems=len(remaining))
     if verbose:
         print(
             f"  ✅ Filtered out {len(subgraphs) - len(remaining)}/"
             f"{len(subgraphs)} subproblems"
         )
         print(f"  🔄 Solving {len(remaining)} subproblems...")
-    _tick("subproblem filter")
 
-    results = _solve_subproblems(graph.to_host(), remaining)
-    for idx, cycle_order, conf_res, conf_topo, system, log_text in results:
-        sg, relevant_reads, relevant_cycles = remaining[idx]
-        if verbose:
-            print(f"    Subproblem {idx + 1}/{len(remaining)}:")
-            print(f"      🛈 Graph with {len(sg.nodes)} nodes and {sg.edge_count()} edges")
-            print(f"      🛈 Reads with {len(relevant_reads)}/{len(reads)} used")
-            print(f"      🛈 Cycles with {len(relevant_cycles)} used")
-            sys.stdout.write(log_text)
-            print(f"      ▸ The order is {' '.join(map(str, cycle_order))}")
-            print(f"      ▸ Cycles were resolved with a confidence of {conf_res * 100:.2f}%")
-            print(f"      ▸ Topological sort has a confidence of {conf_topo * 100:.2f}%")
-        if system is None:
+    with span("solve"):
+        results = _solve_subproblems(graph.to_host(), remaining)
+    with span("collect"):
+        for idx, cycle_order, conf_res, conf_topo, system, log_text in results:
+            sg, relevant_reads, relevant_cycles = remaining[idx]
             if verbose:
-                print("      ▸ Node order is too short and is not processed further")
-            continue
-        repeat, spacers, full_sequence = system
+                print(f"    Subproblem {idx + 1}/{len(remaining)}:")
+                print(f"      🛈 Graph with {len(sg.nodes)} nodes and {sg.edge_count()} edges")
+                print(f"      🛈 Reads with {len(relevant_reads)}/{len(reads)} used")
+                print(f"      🛈 Cycles with {len(relevant_cycles)} used")
+                sys.stdout.write(log_text)
+                print(f"      ▸ The order is {' '.join(map(str, cycle_order))}")
+                print(f"      ▸ Cycles were resolved with a confidence of {conf_res * 100:.2f}%")
+                print(f"      ▸ Topological sort has a confidence of {conf_topo * 100:.2f}%")
+            if system is None:
+                if verbose:
+                    print("      ▸ Node order is too short and is not processed further")
+                continue
+            repeat, spacers, full_sequence = system
+            if verbose:
+                print(f"        ▸ Number of spacers: {len(spacers)}")
+            found_systems.append(FoundSystem(full_sequence, repeat, spacers, conf_res, conf_topo))
         if verbose:
-            print(f"        ▸ Number of spacers: {len(spacers)}")
-        found_systems.append(FoundSystem(full_sequence, repeat, spacers, conf_res, conf_topo))
-    if verbose:
-        print("  ✅ Completed each subproblem")
-    _tick("subproblem solve")
+            print("  ✅ Completed each subproblem")
     return graph, found_systems
 
 
@@ -367,7 +373,8 @@ def _solve_subproblems(host_graph, remaining):
     OpenMP parallelism, src/main_run_and_debug.cpp:32-140). Results come
     back in subproblem order, so output is identical to the serial loop.
     ``MCAAT_ORDERING_PROCS`` overrides the worker count (0/1: serial). A
-    pool failure is logged, then the serial loop runs."""
+    pool failure is logged, then the serial loop runs. Counts the
+    ``workers`` of the pool that gave the results (0: the serial loop)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -384,6 +391,7 @@ def _solve_subproblems(host_graph, remaining):
                 timeout = max(600.0, 5.0 * len(tasks))
                 results = [f.result(timeout=timeout) for f in futures]
                 ex.shutdown(wait=True)
+                count(workers=n_procs)
                 return results
             except Exception as e:
                 ex.shutdown(wait=False, cancel_futures=True)
@@ -392,6 +400,7 @@ def _solve_subproblems(host_graph, remaining):
                     "solving the subproblems serially",
                     file=sys.stderr,
                 )
+        count(workers=0)
         return [_solve_ordering_subproblem(t) for t in tasks]
     finally:
         _ORDERING_GRAPH = None
@@ -491,7 +500,7 @@ def run_debug_pipeline(
 
     dev = resolve_device(device)
     configure_threads(settings.threads)
-    prof = Profiler(dev)
+    prof = Profiler(dev, verbose=verbose)
     result = PipelineResult(profile=prof)
     out_dir = settings.output_folder or "."
 
@@ -594,8 +603,7 @@ def _run_pipeline_sharded(
 
     dev = resolve_device(device)
     mesh = make_pipeline_mesh(default_devices(dev))
-    prof = Profiler(mesh.local_devices)
-    t0 = time.time()
+    prof = Profiler(mesh.local_devices, verbose=verbose)
 
     ckpt = None
     graph_ck_dir = None
@@ -621,11 +629,13 @@ def _run_pipeline_sharded(
             shutil.rmtree(os.path.join(checkpoint_dir, "valid_pruned"), ignore_errors=True)
         with prof.stage("graph_build"):
             input_batches = _load_input_batches(settings)
-            codes, lengths = _concat_batches(input_batches)
-            sg = build_sharded_dbg(
-                mesh, codes, lengths, k=23,
-                add_rc=settings.add_reverse_complement, verbose=verbose,
-            )
+            with span("concat"):
+                codes, lengths = _concat_batches(input_batches)
+            with span("build"):
+                sg = build_sharded_dbg(
+                    mesh, codes, lengths, k=23,
+                    add_rc=settings.add_reverse_complement, verbose=verbose,
+                )
         del codes, lengths
         prof.count("graph_build", nodes=sg.n_nodes)
         if graph_ck_dir:
@@ -633,7 +643,7 @@ def _run_pipeline_sharded(
         if verbose:
             print(
                 f"Graph built (sharded over {mesh.shape}): {sg.n_nodes} nodes, "
-                f"{sg.n_live.tolist()} per shard ({time.time() - t0:.2f}s)"
+                f"{sg.n_live.tolist()} per shard ({prof.elapsed():.2f}s)"
             )
         # the mapper reuses the parsed batches; after a graph checkpoint
         # nothing was parsed, and the mapper parses only if it runs
@@ -651,7 +661,7 @@ def _run_pipeline_sharded(
         map_sources=map_sources, checkpoint_dir=checkpoint_dir,
     )
     if verbose:
-        print(f"Total time: {time.time() - t0:.2f}s")
+        print(f"Total time: {prof.elapsed():.2f}s")
     return result
 
 
@@ -683,9 +693,8 @@ def run_pipeline(
     if _sharded_mode(settings, dev):
         return _run_pipeline_sharded(settings, verbose, checkpoint_dir=checkpoint_dir, device=dev)
 
-    prof = Profiler(dev)
+    prof = Profiler(dev, verbose=verbose)
     result = PipelineResult()
-    t0 = time.time()
 
     ckpt = None
     if checkpoint_dir:
@@ -735,7 +744,7 @@ def run_pipeline(
             if ckpt:
                 ckpt.save_graph(_ck_path("graph.npz"), graph)
             if verbose:
-                print(f"Graph built: {graph.size} nodes ({time.time() - t0:.2f}s)")
+                print(f"Graph built: {graph.size} nodes ({prof.elapsed():.2f}s)")
     result.graph = graph
 
     cfs = settings.cycle_finder_settings
@@ -771,7 +780,8 @@ def run_pipeline(
         from mcaat_tpu_torch.cycles.neighborhood import undirected_region_mask
 
         seeds = np.asarray(sorted({n for c in result.cycles for n in c}), dtype=np.int64)
-        mask = undirected_region_mask(graph, seeds, read_chain_len, verbose=verbose)
+        with span("region_mask", device=dev):
+            mask = undirected_region_mask(graph, seeds, read_chain_len, verbose=verbose)
         region_state["mask"] = mask
         region_state["read_chain_len"] = read_chain_len
         gids = np.nonzero(mask)[0]
@@ -841,5 +851,5 @@ def run_pipeline(
         print(f"Saved in: {analyzer.output_path}")
         print("Stage timings:")
         print(prof.report())
-        print(f"Total time: {time.time() - t0:.2f}s")
+        print(f"Total time: {prof.elapsed():.2f}s")
     return result

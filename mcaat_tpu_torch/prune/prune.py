@@ -146,21 +146,19 @@ def clip_tips(graph: DBG) -> tuple[DBG, int]:
 
 def prune_graph(graph: DBG, verbose: bool = True) -> DBG:
     """Full pruning pass in the reference's order (src/cycle_finder.cpp:433-452)."""
-    import time
+    from mcaat_tpu_torch.utils.profiling import span
 
-    t0 = time.perf_counter()
-    tips0 = int((graph.valid & (graph.out_degree() == 0)).sum())
-    if verbose:
-        print(f"Graph size: {graph.size} nodes; gathered tips: {tips0}")
-    graph, n_mult = invalidate_low_multiplicity(graph)
-    if verbose:
-        print(f"Pre-filter: invalidated {n_mult} node(s) with multiplicity <= 1.")
-        print(f"    [prune] mult filter: {time.perf_counter() - t0:.2f}s", flush=True)
-        t0 = time.perf_counter()
-    graph, n_tips = clip_tips(graph)
-    if verbose:
-        remaining = int(graph.valid.sum())
-        tips_after = int((graph.valid & (graph.out_degree() == 0)).sum())
-        print(f"After pruning, tips: {tips_after}, valid edges: {remaining}")
-        print(f"    [prune] clip tips: {time.perf_counter() - t0:.2f}s", flush=True)
+    with span("mult_filter", device=graph.device if verbose else None):
+        tips0 = int((graph.valid & (graph.out_degree() == 0)).sum())
+        if verbose:
+            print(f"Graph size: {graph.size} nodes; gathered tips: {tips0}")
+        graph, n_mult = invalidate_low_multiplicity(graph)
+        if verbose:
+            print(f"Pre-filter: invalidated {n_mult} node(s) with multiplicity <= 1.")
+    with span("clip_tips", device=graph.device if verbose else None):
+        graph, n_tips = clip_tips(graph)
+        if verbose:
+            remaining = int(graph.valid.sum())
+            tips_after = int((graph.valid & (graph.out_degree() == 0)).sum())
+            print(f"After pruning, tips: {tips_after}, valid edges: {remaining}")
     return graph

@@ -103,17 +103,17 @@ def get_reads(
     the ordering stage (see the proof at mcaat_tpu/reads/mapper.py).
     """
     from mcaat_tpu_torch.io.fastq import read_encoded_batch, reverse_complement_batch
-    from mcaat_tpu_torch.utils.profiling import tick_printer
+    from mcaat_tpu_torch.utils.profiling import count, span
 
-    _tick = tick_printer("mapper", verbose, graph.device)
-    cycle_nodes: set[int] = set()
-    for cycle in cycles:
-        cycle_nodes.update(int(n) for n in cycle)
+    sync_dev = graph.device if verbose else None
 
     def _batch(path: str):
         if batches is not None and path in batches:
             return batches[path]
-        return read_encoded_batch(path)
+        with span("parse"):
+            batch = read_encoded_batch(path)
+            count(reads=batch.num_reads)
+        return batch
 
     def _eps(path: str, mate2: bool):
         if not endpoints or path not in endpoints:
@@ -123,34 +123,41 @@ def get_reads(
             return revcomp_kmers(last_km, graph.k), revcomp_kmers(first_km, graph.k)
         return first_km, last_km
 
-    cyc_km = _bucketed_cycle_kmer_table(graph, cycle_nodes)
+    with span("cycle_table", device=sync_dev):
+        cycle_nodes: set[int] = set()
+        for cycle in cycles:
+            cycle_nodes.update(int(n) for n in cycle)
+        cyc_km = _bucketed_cycle_kmer_table(graph, cycle_nodes)
     plan = []
     b1 = _batch(fastq_file_1)
-    _tick(f"parse ({b1.num_reads} reads)")
-    plan.append((b1, _phase1_kept(graph, b1, cyc_km, _eps(fastq_file_1, False))))
-    _tick(f"keep decision ({len(plan[0][1])} kept)")
+    with span("keep", device=sync_dev):
+        plan.append((b1, _phase1_kept(graph, b1, cyc_km, _eps(fastq_file_1, False))))
+        count(kept_reads=len(plan[0][1]))
     if fastq_file_2:
-        b2 = reverse_complement_batch(_batch(fastq_file_2))
-        _tick("parse mate-2")
-        plan.append((b2, _phase1_kept(graph, b2, cyc_km, _eps(fastq_file_2, True))))
-        _tick(f"keep decision mate-2 ({len(plan[1][1])} kept)")
+        b2 = _batch(fastq_file_2)
+        with span("mate2_revcomp"):
+            b2 = reverse_complement_batch(b2)
+            count(revcomp_mates=b2.num_reads)
+        with span("keep_mate2", device=sync_dev):
+            plan.append((b2, _phase1_kept(graph, b2, cyc_km, _eps(fastq_file_2, True))))
+            count(kept_reads=len(plan[1][1]))
 
     table = None
     if region_provider is not None:
         # the region hop count is the FIRST kept read's window count —
         # exactly the len(reads[0]) the ordering stage uses
-        for b, kept in plan:
-            if len(kept):
-                table = region_provider(int(b.lengths[kept[0]]) - graph.k + 1)
-                break
-        _tick("region table")
+        with span("region_table", device=sync_dev):
+            for b, kept in plan:
+                if len(kept):
+                    table = region_provider(int(b.lengths[kept[0]]) - graph.k + 1)
+                    break
 
-    parts = [
-        _chains_for_kept(graph, b.codes, b.lengths, kept, 1 << 20, table=table)
-        for b, kept in plan
-    ]
-    _tick("map")
-    return Chains.concat(parts)
+    with span("map", device=sync_dev):
+        parts = [
+            _chains_for_kept(graph, b.codes, b.lengths, kept, 1 << 20, table=table)
+            for b, kept in plan
+        ]
+        return Chains.concat(parts)
 
 
 def _phase1_kept(graph: DBG, batch: ReadBatch, cyc_km, endpoints) -> np.ndarray:

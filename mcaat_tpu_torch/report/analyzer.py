@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from mcaat_tpu_torch.report.fuzz import partial_ratio, ratio
+from mcaat_tpu_torch.utils.profiling import count, timer
 
 
 class CRISPRAnalyzer:
@@ -137,16 +138,20 @@ class CRISPRAnalyzer:
         if n > self.BATCH_THRESHOLD and all(len(s) <= 64 for s in sequences):
             from mcaat_tpu_torch.report.batched_fuzz import pairwise_ratio_matrix
 
-            m = pairwise_ratio_matrix(sequences, self.device)
+            with timer("batched_route"):
+                m = pairwise_ratio_matrix(sequences, self.device)
+            count(batched_calls=1, batched_pairs=n * n)
             iu = np.triu_indices(n, 1)
             scores = m[iu]
             if scores.size == 0:
                 return False
             return float(scores.mean()) <= self.mean_similarity
         scores = []
-        for i in range(n):
-            for j in range(i + 1, n):
-                scores.append(ratio(sequences[i], sequences[j]))
+        with timer("host_route"):
+            for i in range(n):
+                for j in range(i + 1, n):
+                    scores.append(ratio(sequences[i], sequences[j]))
+        count(host_route_pairs=len(scores))
         if not scores:
             return False
         return sum(scores) / len(scores) <= self.mean_similarity
@@ -165,7 +170,9 @@ class CRISPRAnalyzer:
                     shorts.append(ordered[i])
                     longs.append(ordered[j])
                     pair_idx.append((i, j))
-            scores = partial_ratio_pairs(shorts, longs, self.device)
+            with timer("batched_route"):
+                scores = partial_ratio_pairs(shorts, longs, self.device)
+            count(batched_calls=1, batched_pairs=len(shorts))
             score_map = {ij: s for ij, s in zip(pair_idx, scores)}
             filtered: list[str] = []
             kept_idx: list[int] = []
@@ -175,14 +182,18 @@ class CRISPRAnalyzer:
                 kept_idx.append(i)
                 filtered.append(ordered[i])
             return filtered
-        filtered = []
         kept: list[str] = []
-        for spacer in ordered:
-            if any(partial_ratio(spacer, k) >= 90.0 for k in kept):
-                continue
-            kept.append(spacer)
-            filtered.append(spacer)
-        return filtered
+        pairs = 0
+        with timer("host_route"):
+            for spacer in ordered:
+                for other in kept:
+                    pairs += 1
+                    if partial_ratio(spacer, other) >= 90.0:
+                        break
+                else:
+                    kept.append(spacer)
+        count(host_route_pairs=pairs)
+        return kept
 
     def filter_by_length(self, spacers: list[str]) -> list[str]:
         return [s for s in spacers if self.min_sl <= len(s) <= self.max_sl]
@@ -274,6 +285,7 @@ class CRISPRAnalyzer:
         lines.append(f"Number of Spacers: {self.total_spacers}")
         lines.append(f"Omitted Repeats: {self.omitted_repeats}")
 
+        count(systems=len(self.systems) - self.omitted_repeats)
         text = "\n".join(lines) + "\n"
         with open(self.output_path, "w") as fh:
             fh.write(text)
