@@ -11,8 +11,10 @@ Base encoding: A=0, C=1, G=2, T=3. Any non-ACGT character is encoded as T,
 mirroring the reference's lookup coding where "other" maps to the same code
 as T (``src/reads.cpp:44-53``: A=1,C=2,G=3,T/other=4).
 
-If the optional native C++ extension (``native/``) is built, parsing is
-delegated to it; otherwise a pure-Python parser is used.
+Plain FASTQ is parsed by the port's own multi-threaded parser
+(``mcaat_tpu_torch/native/fastx.cpp``); other inputs by the shared native
+C++ extension (``native/``) when it is built, otherwise by a pure-Python
+parser.
 """
 
 from __future__ import annotations
@@ -205,12 +207,30 @@ def encode_fastx_chunk(chunk: bytes, block_rows: int = 1 << 18) -> ReadBatch:
     return ReadBatch(codes=codes, lengths=lengths.astype(np.int32))
 
 
-def read_encoded_batch(path: str) -> ReadBatch:
-    """Parse a FASTA/FASTQ(.gz) file directly into a ReadBatch.
+def _is_plain_fastq(path: str) -> bool:
+    """True when the file starts with ``@`` (so it is not gzip, whose
+    magic is ``1f 8b``, nor FASTA, nor empty)."""
+    try:
+        with open(path, "rb") as fh:
+            return fh.read(1) == b"@"
+    except OSError:
+        return False
 
-    Fast path: the native C++ parser fills the padded 2-bit matrix without
-    materializing Python strings. Falls back to the Python parser.
-    """
+
+def _parse_plain(path: str) -> Optional[ReadBatch]:
+    """The port's multi-threaded parser (``native/fastx.cpp``) for a
+    plain FASTQ file; None for any other input or when it is not built."""
+    if not _is_plain_fastq(path):
+        return None
+    from mcaat_tpu_torch.native import parse_plain_fastq
+
+    res = parse_plain_fastq(path)
+    return None if res is None else ReadBatch(codes=res[0], lengths=res[1])
+
+
+def _parse_shared(path: str) -> ReadBatch:
+    """The shared native parser (FASTA/FASTQ, gzipped or not), else the
+    Python one."""
     try:
         from mcaat_tpu_torch.native import parse_fastx_batch
 
@@ -221,6 +241,35 @@ def read_encoded_batch(path: str) -> ReadBatch:
     except ImportError:
         pass
     return encode_sequences(_read_sequences_py(path))
+
+
+def read_encoded_batches(paths: list[str]) -> list[ReadBatch]:
+    """Parse FASTA/FASTQ(.gz) files into ReadBatches, one a path, in turn.
+
+    Plain FASTQ goes through the port's parser, which codes the file on
+    every host thread straight into the padded matrix; gzip, FASTA and
+    empty files, or every file when that parser is not built, through
+    the shared native parser (no Python string a read), else the Python
+    one. Both give the same codes and lengths. Counts, in the innermost
+    open span, ``parse_fast_files`` (the files the port's parser took)
+    and ``parse_threads`` (its threads), when it took any."""
+    from mcaat_tpu_torch.native import parse_threads
+    from mcaat_tpu_torch.utils.profiling import count
+
+    out, fast = [], 0
+    for path in paths:
+        batch = _parse_plain(path)
+        fast += batch is not None
+        out.append(batch if batch is not None else _parse_shared(path))
+    if fast:
+        count(parse_fast_files=fast, parse_threads=parse_threads())
+    return out
+
+
+def read_encoded_batch(path: str) -> ReadBatch:
+    """Parse a FASTA/FASTQ(.gz) file directly into a ReadBatch (see
+    :func:`read_encoded_batches`)."""
+    return read_encoded_batches([path])[0]
 
 
 def reverse_complement_batch(batch: ReadBatch) -> ReadBatch:

@@ -340,11 +340,11 @@ def default_map_sources(
 ) -> list[MapSource]:
     """Parse-the-files fallback (one-process callers without a batch
     cache)."""
-    from mcaat_tpu_torch.io.fastq import read_encoded_batch
+    from mcaat_tpu_torch.io.fastq import read_encoded_batches
 
     with span("parse"):
-        b1 = read_encoded_batch(fastq_file_1)
-        b2 = read_encoded_batch(fastq_file_2) if fastq_file_2 else None
+        files = [fastq_file_1] + ([fastq_file_2] if fastq_file_2 else [])
+        b1, b2 = (read_encoded_batches(files) + [None])[:2]
     return _sources(sg.k, b1, _mate2_revcomp(b2))
 
 
