@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -309,6 +310,7 @@ def build_adjacency_chunked(
     u_id: torch.Tensor | None = None,
     k: int = 23,
     chunk_edges: int | None = None,
+    sync_dev: torch.device | None = None,
 ):
     """Flat out/in adjacency ``[4N]`` from the unique (k+1)-mer table, in
     passes of at most ``chunk_edges`` edges (default
@@ -319,7 +321,11 @@ def build_adjacency_chunked(
     Each pass joins N + C rows instead of N + E, so the peak is the node
     table, one chunk's join and the two accumulators. Every pass sorts
     the node table again, so chunks should be as large as memory allows.
-    Chunks of the sorted edge table keep each pass's out-slots sorted."""
+    Chunks of the sorted edge table keep each pass's out-slots sorted.
+    Each pass is the span ``adjacency_chunk``, which waits for
+    ``sync_dev`` when the profiler is verbose."""
+    from mcaat_tpu_torch.utils.profiling import span
+
     if chunk_edges is None:
         chunk_edges = ADJ_SINGLE_SHOT_MAX_EDGES // (1 if u_id is not None else 2)
     N = kmers23.shape[0]
@@ -328,10 +334,11 @@ def build_adjacency_chunked(
     in_ = torch.full((4 * N + 1,), -1, dtype=torch.int32, device=kmers23.device)
     step = max(int(chunk_edges), 1)
     for lo in range(0, E, step):
-        _adjacency_scatter_chunk(
-            kmers23, edges24[lo : lo + step],
-            None if u_id is None else u_id[lo : lo + step], out, in_, k=k,
-        )
+        with span("adjacency_chunk", device=sync_dev):
+            _adjacency_scatter_chunk(
+                kmers23, edges24[lo : lo + step],
+                None if u_id is None else u_id[lo : lo + step], out, in_, k=k,
+            )
     return out[: 4 * N], in_[: 4 * N]
 
 
@@ -393,6 +400,7 @@ def build_dbg(
     edges24: torch.Tensor,
     u_id: torch.Tensor | None = None,
     k: int = 23,
+    sync_dev: torch.device | None = None,
 ) -> DBG:
     """Assemble a DBG from the sorted unique k-mer table, its counts and
     the sorted unique (k+1)-mer table (exact sizes; a SENTINEL edge row
@@ -406,8 +414,9 @@ def build_dbg(
     package also chunks when the node table alone passes its cutoff; a
     chunk's join still sorts the whole node table, so that gate saves
     nothing here, and every node table comes with at least as many edges
-    less the reads' last windows.)"""
-    out, in_ = build_adjacency_chunked(kmers23, edges24, u_id, k=k)
+    less the reads' last windows.) ``sync_dev``: the device each pass's
+    span waits for when the profiler is verbose."""
+    out, in_ = build_adjacency_chunked(kmers23, edges24, u_id, k=k, sync_dev=sync_dev)
     return DBG(
         k=k, kmers=kmers23, mult=counts23.to(torch.int32), out=out, in_=in_,
         valid=torch.ones(kmers23.shape[0], dtype=torch.bool, device=kmers23.device),
@@ -548,11 +557,11 @@ def build_dbg_from_reads(
         return codes_t, lengths_t
 
     # the RC read's window multiset is the elementwise RC of the forward
-    # windows, so no RC code matrix is ever built; the generator uploads
-    # one part at a time and holds no reference to it
+    # windows, so no RC code matrix is ever built; each loader uploads
+    # its part when the count calls it and holds no reference to it
     with span("upload_count", device=sync_dev):
         u24, c24, n24 = count_edges_parts(
-            (upload(lo, hi) for lo, hi in bounds), k, w_cap=w24,
+            [partial(upload, lo, hi) for lo, hi in bounds], k, w_cap=w24,
             add_rc=add_reverse_complement, verbose=verbose and len(bounds) > 1,
             device=dev,
         )
@@ -573,7 +582,7 @@ def build_dbg_from_reads(
         del c24, u_l, c_l
         count(nodes=n23)
     with span("adjacency", device=sync_dev):
-        graph = build_dbg(u23, c23, u24, u_id, k=k)
+        graph = build_dbg(u23, c23, u24, u_id, k=k, sync_dev=sync_dev)
     return graph
 
 

@@ -273,15 +273,28 @@ def read_encoded_batch(path: str) -> ReadBatch:
 
 
 def reverse_complement_batch(batch: ReadBatch) -> ReadBatch:
-    """Reverse-complement every row of a code matrix (host numpy)."""
+    """Reverse-complement every row of a code matrix (host numpy): each
+    row's first ``length`` codes reversed and complemented (``3 - c``,
+    modulo 256), zeros past it. The rows of one length go in one
+    reversed copy, so a run of untrimmed reads is one copy."""
     codes = batch.codes
-    lengths = batch.lengths
+    lengths = np.asarray(batch.lengths)
     out = np.zeros_like(codes)
-    comp = (3 - codes.astype(np.int16)).astype(np.uint8)
-    for i in range(codes.shape[0]):
-        L = int(lengths[i])
-        out[i, :L] = comp[i, :L][::-1]
-    return ReadBatch(codes=out, lengths=lengths.copy())
+    three = np.uint8(3)
+    for n in np.unique(lengths).tolist():
+        if n <= 0:
+            continue
+        rows = lengths == n
+        if rows.all():
+            block = out[:, :n]
+            block[...] = codes[:, n - 1 :: -1]
+            np.subtract(three, block, out=block)
+        else:
+            idx = np.flatnonzero(rows)
+            block = codes[idx, n - 1 :: -1]
+            np.subtract(three, block, out=block)
+            out[idx, :n] = block
+    return ReadBatch(codes=out, lengths=batch.lengths.copy())
 
 
 def decode_kmer(packed: int, k: int) -> str:

@@ -364,17 +364,25 @@ def count_edges_chunked(codes, lengths, k: int, chunk_rows: int,
 def count_edges_parts(parts, k: int, w_cap: int | None = None,
                       add_rc: bool = False, verbose: bool = False, device="cuda"):
     """Memory-bounded (k+1)-mer counting over row parts uploaded one at a
-    time. ``parts`` is an iterable of ``(codes, lengths)`` device tensors
-    (a generator that uploads each part when asked keeps one on the
-    device at a time); each part is counted and dropped before its table
-    joins the merge stack. Returns ``(u_k1, c_k1, n_k1)``."""
+    time. ``parts`` is an iterable of loaders, each a call with no
+    arguments that uploads its part and returns its ``(codes, lengths)``
+    device tensors, so one part is on the device at a time; each part is
+    counted and dropped before its table joins the merge stack. A part's
+    upload and count are the span ``count_part`` (it waits for ``device``
+    when ``verbose`` and the profiler is). Returns ``(u_k1, c_k1, n_k1)``."""
+    from mcaat_tpu_torch.utils.profiling import span
+
+    dev = torch.device(device)
+
     def counted():
-        for codes_t, lengths_t in parts:
-            res = _count_edge_part(codes_t, lengths_t, k, w_cap, add_rc)
-            del codes_t, lengths_t
+        for load in parts:
+            with span("count_part", device=dev if verbose else None):
+                codes_t, lengths_t = load()
+                res = _count_edge_part(codes_t, lengths_t, k, w_cap, add_rc)
+                del codes_t, lengths_t
             yield res
 
-    return _reduce_counted(counted(), torch.device(device), verbose)
+    return _reduce_counted(counted(), dev, verbose)
 
 
 def _reduce_counted(counted, dev: torch.device, verbose: bool):

@@ -109,7 +109,7 @@ def test_count_edges_chunked_matches(add_rc, w_cap):
 
 @pytest.mark.parametrize("add_rc", [False, True])
 def test_count_edges_parts_matches(add_rc):
-    """Parts of unequal sizes, uploaded one at a time (a generator)."""
+    """Parts of unequal sizes, each uploaded when the count calls its loader."""
     b = reads_with_duplicates(6)
     k, w_cap = 23, 70
     bounds = [(0, 50), (50, 51), (51, 120), (120, b.num_reads)]
@@ -119,7 +119,7 @@ def test_count_edges_parts_matches(add_rc):
         k, w_cap=w_cap, add_rc=add_rc,
     )
     got = tcount.count_edges_parts(
-        ((t(b.codes[lo:hi]), t(b.lengths[lo:hi])) for lo, hi in bounds),
+        [lambda lo=lo, hi=hi: (t(b.codes[lo:hi]), t(b.lengths[lo:hi])) for lo, hi in bounds],
         k, w_cap=w_cap, add_rc=add_rc, verbose=True, device=CPU,
     )
     assert_table(got, single[0].numpy(), single[1].numpy())
