@@ -1,17 +1,19 @@
 """ctypes bindings for the native host runtime (native/mcaat_host.cpp)
-and for the port's own plain-FASTQ parser (``fastx.cpp`` beside this
-file).
+and for the port's own host code beside this file: the plain-FASTQ
+parser (``fastx.cpp``) and the report's host-route scores (``fuzz.cpp``).
 
 The tracked ``native/libmcaat_host.so`` at the repository root is loaded
 first and never rewritten. Where it does not load on this machine, a copy
 is compiled from ``native/mcaat_host.cpp`` with ``native/Makefile``'s
 flags into ``build/mcaat_tpu_torch/`` and loaded from there. Every entry
 point degrades to the pure-Python implementation when neither is
-available. ``fastx.cpp`` is compiled with the same flags (less OpenMP and
-zlib, which it does not use) into ``build/mcaat_tpu_torch/`` by
-:func:`_load`, under a name keyed by its source and the host's CPU; when
-that fails :func:`parse_plain_fastq` returns None and callers keep the
-shared parser.
+available. ``fastx.cpp`` and ``fuzz.cpp`` are compiled with the same
+flags (less OpenMP and zlib, which they do not use) into
+``build/mcaat_tpu_torch/`` by :func:`_load`, each under a name keyed by
+its source, the flags and the host's CPU; when that fails
+:func:`parse_plain_fastq` returns None and callers keep the shared
+parser, and the ``fuzz_*`` functions return None and the report keeps
+its Python loops.
 """
 
 from __future__ import annotations
@@ -29,13 +31,21 @@ _LIB_PATH = os.path.join(_ROOT, "native", "libmcaat_host.so")
 _SRC_PATH = os.path.join(_ROOT, "native", "mcaat_host.cpp")
 _BUILD_PATH = os.path.join(_ROOT, "build", "mcaat_tpu_torch", "libmcaat_host.so")
 
-_FASTX_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fastx.cpp")
-_FASTX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread"]
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_FASTX_SRC = os.path.join(_HERE, "fastx.cpp")
+_FUZZ_SRC = os.path.join(_HERE, "fuzz.cpp")
+# -ffp-contract=off: fuzz.cpp's scores must round as Python's do
+_CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread",
+              "-ffp-contract=off"]
+# the widest string fuzz.cpp scores: one 64-bit word of match masks
+FUZZ_MAX_LEN = 64
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _fastx: Optional[ctypes.CDLL] = None
 _fastx_tried = False
+_fuzz: Optional[ctypes.CDLL] = None
+_fuzz_tried = False
 # --threads as set_threads last received it; None = unset (the CPU count)
 _threads: Optional[int] = None
 
@@ -72,32 +82,46 @@ def _cpu_key() -> bytes:
     return b"\n".join(ln for ln in lines if ln.startswith((b"model name", b"flags")))
 
 
-def _build_fastx() -> Optional[str]:
-    """Compile fastx.cpp into build/mcaat_tpu_torch/ unless a build of
-    this source for this CPU is there; its path, or None when that
-    fails. The compiler writes a private file that is then renamed into
-    place, so processes that build at once do not see a partial one."""
+def _build(src_path: str) -> Optional[str]:
+    """Compile the port's source ``src_path`` into build/mcaat_tpu_torch/
+    unless a build of this source for this CPU is there; its path, or
+    None when that fails. The compiler writes a private file that is
+    then renamed into place, so processes that build at once do not see
+    a partial one."""
+    stem = os.path.splitext(os.path.basename(src_path))[0]
     try:
-        with open(_FASTX_SRC, "rb") as fh:
+        with open(src_path, "rb") as fh:
             src = fh.read()
     except OSError:
         return None
-    key = hashlib.sha1(src + " ".join(_FASTX_FLAGS).encode() + _cpu_key()).hexdigest()[:16]
-    path = os.path.join(_ROOT, "build", "mcaat_tpu_torch", f"libmcaat_fastx-{key}.so")
+    key = hashlib.sha1(src + " ".join(_CXX_FLAGS).encode() + _cpu_key()).hexdigest()[:16]
+    path = os.path.join(_ROOT, "build", "mcaat_tpu_torch", f"libmcaat_{stem}-{key}.so")
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *_FASTX_FLAGS, _FASTX_SRC, "-o", tmp]
+    cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, src_path, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, path)
     except (OSError, subprocess.CalledProcessError) as e:
-        print(f"fastx build failed ({e}); plain FASTQ takes the shared parser")
+        print(f"{stem} build failed ({e}); its callers keep their other route")
         if os.path.exists(tmp):
             os.remove(tmp)
         return None
     return path
+
+
+def _open(src_path: str) -> Optional[ctypes.CDLL]:
+    """The library of the port's source ``src_path`` (:func:`_build`),
+    loaded; None when it did not build or load."""
+    path = _build(src_path)
+    if path is None:
+        return None
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        return None
 
 
 def _load_fastx() -> Optional[ctypes.CDLL]:
@@ -106,12 +130,8 @@ def _load_fastx() -> Optional[ctypes.CDLL]:
     if _fastx_tried:
         return _fastx
     _fastx_tried = True
-    path = _build_fastx()
-    if path is None:
-        return None
-    try:
-        lib = ctypes.CDLL(path)
-    except OSError:
+    lib = _open(_FASTX_SRC)
+    if lib is None:
         return None
     c = ctypes
     lib.mcaat_fastq_index.restype = c.c_void_p
@@ -129,12 +149,35 @@ def _load_fastx() -> Optional[ctypes.CDLL]:
     return _fastx
 
 
+def _load_fuzz() -> Optional[ctypes.CDLL]:
+    """The report's host-route scoring library, built on first use."""
+    global _fuzz, _fuzz_tried
+    if _fuzz_tried:
+        return _fuzz
+    _fuzz_tried = True
+    lib = _open(_FUZZ_SRC)
+    if lib is None:
+        return None
+    c = ctypes
+    u8, i32, i64, f64 = (c.POINTER(t) for t in (c.c_uint8, c.c_int32, c.c_int64, c.c_double))
+    lib.mcaat_fuzz_ratio_all_pairs.restype = None
+    lib.mcaat_fuzz_ratio_all_pairs.argtypes = [u8, c.c_int64, i32, c.c_int32, f64]
+    lib.mcaat_fuzz_substring_keep.restype = c.c_int32
+    lib.mcaat_fuzz_substring_keep.argtypes = [u8, c.c_int64, i32, c.c_int32, i32, i64]
+    lib.mcaat_fuzz_pair_scores.restype = None
+    lib.mcaat_fuzz_pair_scores.argtypes = [u8, i32, u8, i32, c.c_int64, c.c_int64, c.c_int32,
+                                           f64]
+    _fuzz = lib
+    return _fuzz
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _tried:
         return _lib
     _tried = True
     _load_fastx()
+    _load_fuzz()
     lib = None
     if os.path.exists(_LIB_PATH):
         try:
@@ -476,3 +519,76 @@ def poa_consensus(sequences, match: int = 3, mismatch: int = -5, gap: int = -3):
         return c.string_at(out, out_len.value).decode("ascii")
     finally:
         lib.mcaat_free(out)
+
+
+def _fuzz_rows(strings):
+    """``strings`` as fuzz.cpp takes them: a [n, FUZZ_MAX_LEN] uint8
+    matrix of their bytes, zero-padded, and their int32 lengths. None
+    where a string is longer than FUZZ_MAX_LEN or has a character that is
+    not one byte (a code point over 255)."""
+    try:
+        rows = [s.encode("latin-1") for s in strings]
+    except UnicodeEncodeError:
+        return None
+    if any(len(r) > FUZZ_MAX_LEN for r in rows):
+        return None
+    mat = np.frombuffer(b"".join(r.ljust(FUZZ_MAX_LEN, b"\0") for r in rows), dtype=np.uint8)
+    lens = np.array([len(r) for r in rows], dtype=np.int32)
+    return mat.reshape(len(rows), FUZZ_MAX_LEN), lens
+
+
+def _ptr(arr, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def fuzz_ratio_all_pairs(strings: list[str]):
+    """``report.fuzz.ratio(strings[i], strings[j])`` for every pair i < j
+    in row order, as a float64 array equal bit for bit to the Python
+    scores; None when fuzz.cpp did not build or a string does not fit
+    (:func:`_fuzz_rows`)."""
+    lib = _load_fuzz()
+    rows = None if lib is None else _fuzz_rows(strings)
+    if rows is None:
+        return None
+    mat, lens = rows
+    n = len(strings)
+    out = np.empty(n * (n - 1) // 2, dtype=np.float64)
+    lib.mcaat_fuzz_ratio_all_pairs(_ptr(mat, ctypes.c_uint8), FUZZ_MAX_LEN,
+                                   _ptr(lens, ctypes.c_int32), n, _ptr(out, ctypes.c_double))
+    return out
+
+
+def fuzz_substring_keep(strings: list[str]):
+    """The substring filter's greedy scan over ``strings`` in their order
+    (``report.analyzer.CRISPRAnalyzer.filter_substring_spacers`` after its
+    sort): ``(kept indices, partial_ratio calls)``; None when fuzz.cpp did
+    not build or a string does not fit (:func:`_fuzz_rows`)."""
+    lib = _load_fuzz()
+    rows = None if lib is None else _fuzz_rows(strings)
+    if rows is None:
+        return None
+    mat, lens = rows
+    kept = np.empty(len(strings), dtype=np.int32)
+    pairs = ctypes.c_int64()
+    n_kept = lib.mcaat_fuzz_substring_keep(_ptr(mat, ctypes.c_uint8), FUZZ_MAX_LEN,
+                                           _ptr(lens, ctypes.c_int32), len(strings),
+                                           _ptr(kept, ctypes.c_int32), ctypes.byref(pairs))
+    return kept[:n_kept].tolist(), int(pairs.value)
+
+
+def fuzz_pair_scores(a: list[str], b: list[str], partial: bool):
+    """``partial_ratio(a[i], b[i])`` (or ``ratio`` when not ``partial``)
+    for each i, as a float64 array; None when fuzz.cpp did not build or a
+    string does not fit (:func:`_fuzz_rows`)."""
+    if len(a) != len(b):
+        raise ValueError("a and b must pair up")
+    lib = _load_fuzz()
+    rows_a = None if lib is None else _fuzz_rows(a)
+    rows_b = None if rows_a is None else _fuzz_rows(b)
+    if rows_b is None:
+        return None
+    out = np.empty(len(a), dtype=np.float64)
+    lib.mcaat_fuzz_pair_scores(_ptr(rows_a[0], ctypes.c_uint8), _ptr(rows_a[1], ctypes.c_int32),
+                               _ptr(rows_b[0], ctypes.c_uint8), _ptr(rows_b[1], ctypes.c_int32),
+                               FUZZ_MAX_LEN, len(a), int(partial), _ptr(out, ctypes.c_double))
+    return out

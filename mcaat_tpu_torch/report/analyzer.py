@@ -10,7 +10,10 @@ diverse (mean pairwise ratio ≤ mean_similarity).
 Port of ``mcaat_tpu/report/analyzer.py``: a host copy whose batched
 similarity scores (systems with more than ``BATCH_THRESHOLD`` spacers)
 run on ``device`` through ``report/batched_fuzz.py`` — on the card, the
-hand-written CUDA LCS kernel.
+hand-written CUDA LCS kernel. Smaller systems take the host route:
+the port's compiled ``native/fuzz.cpp`` (``native.fuzz_*``) where it
+built and every string fits its 64-bit word, else the loops over
+``report/fuzz.py``; both give the same doubles and the same decisions.
 
 Determinism note: the reference iterates an ``unordered_map`` when writing
 the report (post_processing.h:193), so its block order is
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from mcaat_tpu_torch import native
 from mcaat_tpu_torch.report.fuzz import partial_ratio, ratio
 from mcaat_tpu_torch.utils.profiling import count, timer
 
@@ -88,9 +92,7 @@ class CRISPRAnalyzer:
             count[km] = count.get(km, 0) + 1
         threshold = int(len(sequences) * 0.75)
         uniq = list(count.keys())  # first-seen order (fallback)
-        from mcaat_tpu_torch.native import umap_order
-
-        order = umap_order(uniq)
+        order = native.umap_order(uniq)
         if order is not None:
             uniq = [uniq[i] for i in order]
         return [km for km in uniq if count[km] >= threshold]
@@ -146,12 +148,15 @@ class CRISPRAnalyzer:
             if scores.size == 0:
                 return False
             return float(scores.mean()) <= self.mean_similarity
-        scores = []
         with timer("host_route"):
-            for i in range(n):
-                for j in range(i + 1, n):
-                    scores.append(ratio(sequences[i], sequences[j]))
-        count(host_route_pairs=len(scores))
+            compiled = native.fuzz_ratio_all_pairs(sequences)
+            if compiled is not None:
+                scores = compiled.tolist()
+            else:
+                scores = [ratio(sequences[i], sequences[j])
+                          for i in range(n) for j in range(i + 1, n)]
+        count(host_route_pairs=len(scores),
+              host_route_compiled_pairs=len(scores) if compiled is not None else 0)
         if not scores:
             return False
         return sum(scores) / len(scores) <= self.mean_similarity
@@ -182,17 +187,22 @@ class CRISPRAnalyzer:
                 kept_idx.append(i)
                 filtered.append(ordered[i])
             return filtered
-        kept: list[str] = []
-        pairs = 0
         with timer("host_route"):
-            for spacer in ordered:
-                for other in kept:
-                    pairs += 1
-                    if partial_ratio(spacer, other) >= 90.0:
-                        break
-                else:
-                    kept.append(spacer)
-        count(host_route_pairs=pairs)
+            compiled = native.fuzz_substring_keep(ordered)
+            if compiled is not None:
+                kept_idx, pairs = compiled
+                kept = [ordered[i] for i in kept_idx]
+            else:
+                kept, pairs = [], 0
+                for spacer in ordered:
+                    for other in kept:
+                        pairs += 1
+                        if partial_ratio(spacer, other) >= 90.0:
+                            break
+                    else:
+                        kept.append(spacer)
+        count(host_route_pairs=pairs,
+              host_route_compiled_pairs=pairs if compiled is not None else 0)
         return kept
 
     def filter_by_length(self, spacers: list[str]) -> list[str]:

@@ -205,9 +205,8 @@ def test_a_compiler_that_fails_is_reported_not_raised(tmp_path, monkeypatch, cap
     """A build that fails leaves no library and no partial file behind."""
     src = tmp_path / "fastx.cpp"
     src.write_text("this is not C++\n")
-    monkeypatch.setattr(tnative, "_FASTX_SRC", str(src))
     monkeypatch.setattr(tnative, "_ROOT", str(tmp_path))
-    assert tnative._build_fastx() is None
+    assert tnative._build(str(src)) is None
     assert "fastx build failed" in capsys.readouterr().out
     assert os.listdir(tmp_path / "build" / "mcaat_tpu_torch") == []
 

@@ -15,6 +15,7 @@ import torch
 import mcaat_tpu_torch.cycles.finder as tfinder
 import mcaat_tpu_torch.pipeline as tpipeline
 import mcaat_tpu_torch.report.analyzer as tanalyzer
+from mcaat_tpu_torch import native as tnative
 from mcaat_tpu_torch.io.fastq import read_encoded_batch
 from mcaat_tpu_torch.settings import Settings
 from mcaat_tpu_torch.utils import profiling as tprof
@@ -127,6 +128,10 @@ def test_counters_equal_independent_counts(tmp_path, monkeypatch):
 
         return call
 
+    # the report's Python route, whose calls are counted here (the
+    # compiled route's counts are held to it in test_torch_fuzz_host.py)
+    monkeypatch.setattr(tnative, "_fuzz", None)
+    monkeypatch.setattr(tnative, "_fuzz_tried", True)
     monkeypatch.setattr(tanalyzer, "ratio", counted(tanalyzer.ratio))
     monkeypatch.setattr(tanalyzer, "partial_ratio", counted(tanalyzer.partial_ratio))
     records = _run("forced", tmp_path, monkeypatch).profile.span_records()
@@ -137,6 +142,7 @@ def test_counters_equal_independent_counts(tmp_path, monkeypatch):
 
     assert calls["n"] > 0
     assert total("host_route_pairs", "report") == calls["n"]
+    assert total("host_route_compiled_pairs", "report") == 0
     report = next(r for r in records if r["name"] == "report")
     assert report["timers"]["host_route"]["calls"] > 0
     assert total("revcomp_mates") == read_encoded_batch(PE[1]).num_reads
