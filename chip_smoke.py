@@ -127,12 +127,7 @@ Phases (any failure exits non-zero):
     mates, through the CLI entry point: every system, at least 95% of the
     spacers, the device peak under the card's memory, the adjacency
     chunks and the bytes a window and a node printed;
-23. ``bench_torch.py --cell planted-20x30 --cell array-250 --runs 3`` in
-    a process of its own: its last line is JSON with every metric name of
-    ``bench.py``'s set and of a cell, its gate passed, its planted-20x30
-    report has the SHA-1 of phase 5's, its cells launched ``ratio_matrix``
-    and ``partial_ratio`` 20 + 20 and 1 + 1 times, and kp 8's node table
-    equals kp 1's; the medians and quartiles are printed;
+23. not used (the numbers are those the records cite);
 24. a metagenome as Illumina sequences it (``tests/torch_fragments.py``:
     2x150-bp fragment pairs, 32% of the mates trimmed, 2% below k + 1,
     N bases, substitutions rising from 0.1% to 1% along a mate, arrays of
@@ -158,9 +153,10 @@ theirs); the kernels' inputs on phases 8, 10, 12, 20, 21 and 24 are held
 against the plain versions too. The per-pair kernel serves the public ``ratio_batch`` and
 ``lcs_batch`` and no pipeline path: phases 3 and 6 launch it, and fail
 when they did not, and phase 16 drives ``lcs_batch`` with the counts
-zeroed just before and fails when the kernel was not launched. Phase 3
-also measures the card's rate of 32-bit integer multiply-adds
-(``csrc/int_rate.cu``) and prints it beside ``PEAK_INT_OPS_S``.
+zeroed just before and fails when the kernel was not launched. Every
+bound is the least time at the peaks of ``benchmark/kernels.py``, the
+benchmark's yardstick, and ``partial_ratio``'s and ``ratio_matrix``'s
+take its per-call counts.
 
 ``--skip 3,4,7`` leaves phases out while a change is being debugged; such
 a run prints no result lines.
@@ -183,6 +179,16 @@ import sys
 import tempfile
 import time
 import traceback
+
+from benchmark.kernels import (
+    MASK_OPS,
+    PEAK_BYTES_S,
+    PEAK_INT_OPS_S,
+    STEP_OPS,
+    least_seconds,
+    partial_ratio_counts,
+    ratio_matrix_counts,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -313,67 +319,49 @@ def compare_table(kernel, plain, inputs) -> float:
     return same_bits("partial_ratio against the plain version", got, want)
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, which counts a
-# fused multiply-add as two, so 33.5e12 instructions a second. The integer
-# recurrences here are counted in 32-bit integer operations against that
-# rate (the data sheet gives none for integers, and theirs is no higher).
-PEAK_BYTES_S = 3.35e12
-PEAK_INT_OPS_S = 33.5e12
-STEP_OPS = 20  # one step of the recurrence: about 10 operations on 64 bits
-MASK_OPS = 8  # building the four match masks, per base of the row string
+def table_strings(codes, lengths) -> list:
+    """The strings of a table of 2-bit code rows, as the report passed them."""
+    import numpy as np
+
+    bases = np.array(list("ACGT"))[codes.cpu().numpy()]
+    return ["".join(row[:n]) for row, n in zip(bases, lengths.tolist())]
 
 
-def bound(n_bytes: float, n_ops: float, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str]:
-    """(least milliseconds the card could take, "bytes" or "operations").
-    ``int_ops_s`` is the integer rate the operations are held against:
-    the assumed peak, or the rate phase 3 measured."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / int_ops_s
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, "bytes" or "operations"),
+    against the peaks of ``benchmark/kernels.py``."""
+    by = "bytes" if n_bytes / PEAK_BYTES_S >= n_ops / PEAK_INT_OPS_S else "operations"
+    return 1e3 * least_seconds(n_bytes, n_ops), by
 
 
-def lcs_ratio_bound(inputs, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str]:
+def lcs_ratio_bound(inputs) -> tuple[float, str]:
     """Bound of the per-pair kernel on these inputs: both code rows and
     lengths read once and both outputs written once (144 bytes a pair);
     one recurrence step per base of b and the masks of a."""
     _a, la, _b, lb = inputs
     B = int(la.numel())
-    return bound(144 * B, STEP_OPS * int(lb.sum()) + MASK_OPS * int(la.sum()), int_ops_s)
+    return bound(144 * B, STEP_OPS * int(lb.sum()) + MASK_OPS * int(la.sum()))
 
 
-def partial_ratio_bound(inputs, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str]:
-    """Bound of the fused kernel on these inputs: the table, both index
-    vectors and the output once; one recurrence step per base of every
-    non-empty window of every pair (what this data needs), and the masks
-    of each pair's short string."""
-    import torch
-
+def partial_ratio_bound(inputs) -> tuple[float, str]:
+    """Bound of the fused kernel on ``(codes, lengths, s_idx, l_idx)``:
+    ``benchmark/kernels.py::partial_ratio_counts`` of its pairs."""
     codes, lengths, s_idx, l_idx = inputs
-    n, P = int(codes.shape[0]), int(s_idx.numel())
-    ls = lengths[s_idx.long()].long()
-    ll = lengths[l_idx.long()].long()
-    w = torch.arange(127, device=codes.device)[None, :]
-    start = w - (ls[:, None] - 1)
-    lw = torch.minimum(ll[:, None], start + ls[:, None]) - torch.clamp(start, min=0)
-    live = (w < (ls - 1 + torch.clamp(ll, min=1))[:, None]) & (ls[:, None] > 0)
-    steps = int(torch.clamp(lw, min=0)[live].sum())
-    return bound(68 * n + 12 * P, STEP_OPS * steps + MASK_OPS * int(ls.sum()), int_ops_s)
+    strings = table_strings(codes, lengths)
+    return bound(*partial_ratio_counts([strings[i] for i in s_idx.tolist()],
+                                       [strings[i] for i in l_idx.tolist()]))
 
 
-def ratio_matrix_bound(inputs, int_ops_s: float = PEAK_INT_OPS_S) -> tuple[float, str, float]:
-    """Bound of the all-pairs kernel on these inputs, and the same with
-    every one of the n² pairs scored. Bytes: the table read once and the
-    matrix written once. Operations: ratio(i, j) == ratio(j, i) bit for
-    bit, so the function needs the n(n+1)/2 pairs with i <= j only: one
-    recurrence step per base of b for each of them (a string is b in
-    (n+1)/2 of them, averaged over the table's order) and the masks once
-    a string. The second figure counts the steps of all n² pairs, what a
-    kernel that mirrors nothing would do."""
+def ratio_matrix_bound(inputs) -> tuple[float, str, float]:
+    """Bound of the all-pairs kernel on ``(codes, lengths)``
+    (``benchmark/kernels.py::ratio_matrix_counts``: the n(n+1)/2 pairs
+    i <= j, since the score is symmetric bit for bit), and the same with
+    every one of the n² pairs scored, what a kernel that mirrors nothing
+    would do."""
     codes, lengths = inputs
     n, bases = int(codes.shape[0]), int(lengths.sum())
-    n_bytes = 68 * n + 4 * n * n
-    ms, by = bound(n_bytes, STEP_OPS * (n + 1) * bases / 2 + MASK_OPS * bases, int_ops_s)
-    return ms, by, bound(n_bytes, STEP_OPS * n * bases + MASK_OPS * bases, int_ops_s)[0]
+    n_bytes, n_ops = ratio_matrix_counts(table_strings(codes, lengths))
+    return (*bound(n_bytes, n_ops), bound(n_bytes, STEP_OPS * n * bases + MASK_OPS * bases)[0])
 
 
 def random_table(rng, n: int, device):
@@ -585,13 +573,6 @@ def main() -> int:
                 fail(f"the build's report names no {name}_kernel")
 
     stats = {"max_abs_err": 0.0}
-    int_rate: dict = {}
-
-    def measured_int_rate() -> float:
-        """The integer rate phase 3's probe measured (the assumed peak
-        while that phase is skipped), for the restated bounds."""
-        return int_rate.get("madd_per_s", PEAK_INT_OPS_S)
-
     pstats = {"max_abs_err": 0.0}
     mstats = {"max_abs_err": 0.0}
 
@@ -647,38 +628,6 @@ def main() -> int:
     @phase("3 the kernels vs plain torch on the card")
     def p3():
         lcs_cuda.reset_launch_counts()
-        # the integer roof: what the card sustains in independent 32-bit
-        # multiply-adds, beside the peak the bounds above assume
-        def probe(blocks: int, iters: int):
-            out = torch.empty(blocks * lcs_cuda.INT_RATE_THREADS, dtype=torch.int32, device=device)
-            return out, lcs_cuda.int_rate_probe(out, blocks, iters)
-
-        small, _n = probe(4, 64)  # held against numpy's wrapping uint32 arithmetic
-        x = np.arange(small.numel(), dtype=np.uint32)
-        want = np.zeros_like(x)
-        for j in range(lcs_cuda.INT_RATE_CHAINS):
-            v = x + np.uint32((0x9E3779B9 * (j + 1)) & 0xFFFFFFFF)
-            for _ in range(64):
-                v = v * np.uint32(1664525) + np.uint32(1013904223)
-            want ^= v
-        if not np.array_equal(small.cpu().numpy().view(np.uint32), want):
-            fail("the integer-rate probe's result differs from numpy's")
-        blocks, iters = 132 * 16, 4096
-        probe_out, n_madd = probe(blocks, iters)
-        ms = min(cuda_ms(lambda: lcs_cuda.int_rate_probe(probe_out, blocks, iters), 10) for _ in range(3))
-        int_rate["madd_per_s"] = n_madd / (ms * 1e-3)
-        int_rate["ms"], int_rate["madds"] = ms, n_madd
-        clock = subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
-        int_rate["clocks_sm_now_max"] = clock
-        print(
-            f"  integer roof: {n_madd} independent 32-bit multiply-adds in {ms:.4f} ms = "
-            f"{int_rate['madd_per_s'] / 1e12:.2f}e12 a second measured, beside PEAK_INT_OPS_S = "
-            f"{PEAK_INT_OPS_S / 1e12:.1f}e12 assumed ({int_rate['madd_per_s'] / PEAK_INT_OPS_S:.3f} of it; "
-            f"SM clock now, max: {clock}) ({card})"
-        )
         rng = np.random.default_rng(0)
         cases = [("length grid 65x65", length_grid(rng, device))]
         for B in (1, 31, 32, 33, 4097, 1 << 20):
@@ -702,7 +651,6 @@ def main() -> int:
         stats["ms_1m"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 20)
         stats["plain_ms_1m"] = cuda_ms(lambda: lcs_ratio_plain(*big), 5)
         stats["bound_ms_1m"], by = lcs_ratio_bound(big)
-        stats["measured_rate_bound_1m"] = lcs_ratio_bound(big, measured_int_rate())
         print(
             f"  1,048,576 pairs: kernel {stats['ms_1m']:.4f} ms, plain "
             f"{stats['plain_ms_1m']:.4f} ms, bound {stats['bound_ms_1m']:.4f} ms by {by} ({card})"
@@ -761,7 +709,6 @@ def main() -> int:
         mstats["gathered_kernel_ms_1m"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*lanes))
         mstats["plain_ms_1m"] = cuda_ms(lambda: ratio_matrix_plain(*table), 5)
         mstats["bound_ms_1m"], by, mstats["bound_ms_1m_every_pair"] = ratio_matrix_bound(table)
-        mstats["measured_rate_bound_1m"] = ratio_matrix_bound(table, measured_int_rate())[:2]
         print(
             f"  1,024 strings, 1,048,576 pairs: ratio_matrix {mstats['ms_1m']:.4f} ms on the card "
             f"(runs of {lcs_cuda.matrix_run(1024)}; {mstats['call_ms_1m']:.4f} ms a call from Python), "
@@ -942,7 +889,6 @@ def main() -> int:
         mstats["call_ms"] = cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200)
         mstats["plain_ms"] = cuda_ms(lambda: ratio_matrix_plain(*mbig), 10)
         mstats["bound_ms"], mstats["bound_by"], mstats["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
-        mstats["measured_rate_bound"] = ratio_matrix_bound(mbig, measured_int_rate())[:2]
         print(
             f"  {len(seen['ratio_matrix'])} main-path ratio_matrix tables equal (plain version and "
             f"gathered route); largest {mstats['strings']} strings, {mstats['batch']} pairs: kernel "
@@ -961,7 +907,6 @@ def main() -> int:
         stats["call_ms"] = cuda_ms(lambda: lcs_cuda.lcs_ratio_cuda(*big), 200)
         stats["plain_ms"] = cuda_ms(lambda: lcs_ratio_plain(*big), 10)
         stats["bound_ms"], stats["bound_by"] = lcs_ratio_bound(big)
-        stats["measured_rate_bound"] = lcs_ratio_bound(big, measured_int_rate())
         print(
             f"  lcs_ratio on the gathered pairs of those tables equal; largest "
             f"B={stats['batch']}: kernel {stats['ms']:.5f} ms on the card ({stats['call_ms']:.4f} ms a "
@@ -975,7 +920,6 @@ def main() -> int:
         pstats["call_ms"] = cuda_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig), 200)
         pstats["plain_ms"] = cuda_ms(lambda: partial_ratio_table_plain(*pbig), 10)
         pstats["bound_ms"], pstats["bound_by"] = partial_ratio_bound(pbig)
-        pstats["measured_rate_bound"] = partial_ratio_bound(pbig, measured_int_rate())
         print(
             f"  {len(seen['partial_ratio'])} main-path partial_ratio tables equal; largest "
             f"{pstats['strings']} strings, P={pstats['batch']}: kernel {pstats['ms']:.5f} ms on the "
@@ -1016,15 +960,12 @@ def main() -> int:
         pstats["expanded_lanes"] = int(old_in[0].shape[0])
         pstats["expanded_kernel_ms"] = graph_ms(lambda: lcs_cuda.lcs_ratio_cuda(*old_in))
         pstats["expanded_kernel_bound_ms"], by = lcs_ratio_bound(old_in)
-        pstats["expanded_kernel_measured_rate_bound"] = lcs_ratio_bound(old_in, measured_int_rate())
         print(
             f"  largest system, {len(shorts)} pairs: partial_ratio_pairs "
             f"{pstats['wall_ms']:.3f} ms wall; the expanded route {pstats['expanded_wall_ms']:.3f} ms "
             f"wall over {pstats['expanded_lanes']} lanes (its per-pair kernel "
             f"{pstats['expanded_kernel_ms']:.5f} ms on the card, bound "
-            f"{pstats['expanded_kernel_bound_ms']:.6f} ms by {by}; at the measured integer rate "
-            f"{pstats['expanded_kernel_measured_rate_bound'][0]:.6f} ms by "
-            f"{pstats['expanded_kernel_measured_rate_bound'][1]}); equal bit for bit ({card})"
+            f"{pstats['expanded_kernel_bound_ms']:.6f} ms by {by}); equal bit for bit ({card})"
         )
         # the same for the all-pairs score of the largest system's spacers
         table = max(main_path["tables"], key=len)
@@ -1965,8 +1906,7 @@ def main() -> int:
 
     def time_tables(seen: dict) -> dict:
         """Both report kernels timed on the largest table a path gave
-        them, beside their plain versions and bounds (at the assumed and
-        at the measured integer rate)."""
+        them, beside their plain versions and bounds."""
         mbig = max(seen["ratio_matrix"], key=lambda x: x[0].shape[0])
         pbig = max(seen["partial_ratio"], key=lambda x: x[2].shape[0])
         n = int(mbig[0].shape[0])
@@ -1975,17 +1915,14 @@ def main() -> int:
              "call_ms": cuda_ms(lambda: lcs_cuda.ratio_matrix_cuda(*mbig), 200),
              "plain_ms": cuda_ms(lambda: ratio_matrix_plain(*mbig), 5)}
         m["bound_ms"], m["bound_by"], m["bound_ms_every_pair"] = ratio_matrix_bound(mbig)
-        m["measured_rate_bound"] = ratio_matrix_bound(mbig, measured_int_rate())[:2]
         p = {"strings": int(pbig[0].shape[0]), "batch": int(pbig[2].shape[0]),
              "ms": graph_ms(lambda: lcs_cuda.partial_ratio_cuda(*pbig)),
              "plain_ms": cuda_ms(lambda: partial_ratio_table_plain(*pbig), 5)}
         p["bound_ms"], p["bound_by"] = partial_ratio_bound(pbig)
-        p["measured_rate_bound"] = partial_ratio_bound(pbig, measured_int_rate())
         for name, f in (("ratio_matrix", m), ("partial_ratio", p)):
             print(f"  {name} on {f['strings']} strings, {f['batch']} pairs: {f['ms']:.5f} ms on "
                   f"the card, plain {f['plain_ms']:.4f} ms, bound {f['bound_ms']:.6f} ms by "
-                  f"{f['bound_by']} (at the measured integer rate "
-                  f"{f['measured_rate_bound'][0]:.6f} ms) ({card})")
+                  f"{f['bound_by']} ({card})")
         print(f"  ratio_matrix a call from Python {m['call_ms']:.4f} ms; with all n² pairs scored "
               f"its bound is {m['bound_ms_every_pair']:.6f} ms")
         return {"ratio_matrix": m, "partial_ratio": p}
@@ -2150,79 +2087,6 @@ def main() -> int:
                      systems=systems, arrays=n_arrays, repeats_exact=exact, spacers_found=found, spacers=n_spacers,
                      launches=lcs["launches"], errors_s=gen_s, write_s=write_s)
 
-    bench: dict = {}
-
-    @phase("23 bench_torch.py on planted-20x30 and array-250 (a cold run and three warm runs each)")
-    def p23():
-        import hashlib
-
-        import bench_torch
-
-        torch.cuda.empty_cache()  # the benchmark's processes share the card
-        out = os.path.join(ROOT, "build", "chip_smoke", "bench_torch.json")
-        log = os.path.join(ROOT, "build", "chip_smoke", "bench_torch.log")
-        os.makedirs(os.path.dirname(log), exist_ok=True)
-        env = {k: v for k, v in os.environ.items() if not k.startswith("MCAAT_")}
-        with open(log, "w") as fh:
-            proc = subprocess.run(
-                [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--cell", "planted-20x30",
-                 "--cell", "array-250", "--runs", "3", "--json", out],
-                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=fh, text=True, timeout=900,
-            )
-        print("  progress: build/chip_smoke/bench_torch.log; the line: "
-              "build/chip_smoke/bench_torch.json")
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            with open(log) as fh:
-                print(fh.read()[-4000:])
-            fail(f"bench_torch.py exited with {proc.returncode}")
-        try:
-            got = json.loads(lines[-1])
-        except json.JSONDecodeError:
-            fail(f"bench_torch.py's last line is not JSON: {lines[-1][:200]}")
-        extra = got["extra"]
-        missing = [m for m in bench_torch.PART1_METRICS if m not in extra]
-        cells = extra.get("cells", {})
-        for name in ("planted-20x30", "array-250"):
-            missing += [f"{name}.{m}" for m in bench_torch.CELL_METRICS
-                        if m not in cells.get(name, {})]
-        if missing or not {"metric", "value", "unit", "vs_baseline"} <= set(got):
-            fail(f"bench_torch.py's line lacks {missing}")
-        planted, array = cells["planted-20x30"], cells["array-250"]
-        if "report" in main_path and \
-                planted["report_sha1"] != hashlib.sha1(main_path["report"]).hexdigest():
-            fail("bench_torch.py's planted-20x30 report differs from phase 5's")
-        want = {"planted-20x30": 20, "array-250": 1}
-        for name, n in want.items():
-            launches = cells[name]["launches"]
-            if any(launches[k] != n for k in PATH_KERNELS):
-                fail(f"bench_torch.py's {name} launched {launches}, not {n} + {n}")
-        if not extra["scaling"]["node_table_parity"]:
-            fail("bench_torch.py's scaling: kp 8's node table differs from kp 1's")
-        for name, c in cells.items():
-            w, r = c["wall_s"], c["reads_per_s"]
-            print(f"  {name}: cold {c['cold_s']:.2f}s; warm median {w['median']:.3f}s (quartiles "
-                  f"{w['q1']:.3f}-{w['q3']:.3f}, n={w['n']}), {r['median']:,.0f} reads/s; "
-                  f"stages {({k: round(v, 3) for k, v in c['stages_s'].items()})}; peak "
-                  f"{c['device_peak_bytes'] / 2**30:.2f} GiB, reserved unused there "
-                  f"{c['reserved_unused_at_peak_bytes'] / 2**30:.2f} GiB; nodes {c['nodes']}; "
-                  f"launches {c['launches']}; gate {c['gate']} ({card})")
-        sc = extra["scaling"]
-        print(f"  part 1: uniform build {extra['graph_build_kmers_per_s']:,.0f} k-mers/s, planted "
-              f"build {extra['planted_build_kmers_per_s']:,.0f} k-mers/s, cycle search "
-              f"{extra['cycle_search_nodes_per_s']:,.0f} nodes/s, warm e2e "
-              f"{extra['e2e_reads_per_s_warm']:,.0f} reads/s, spacers {extra['spacer_recovery']}; "
-              f"kp 1 / kp 8 node table {sc['kp1']['node_table_sha1']} / "
-              f"{sc['kp8']['node_table_sha1']}, {sc['count_budget']['bytes_per_count_row_kp1']} "
-              f"bytes a count row ({card})")
-        bench.update(
-            part1={m: extra[m] for m in bench_torch.PART1_METRICS if m != "scaling"},
-            node_table_sha1={kp: sc[kp]["node_table_sha1"] for kp in ("kp1", "kp8")},
-            cells={n: {k: c[k] for k in ("cold_s", "wall_s", "reads_per_s", "stages_s",
-                                         "device_peak_bytes", "reserved_unused_at_peak_bytes",
-                                         "launches", "report_sha1", "gate")}
-                   for n, c in cells.items()})
-
     def unequal_pairs(seen: dict) -> dict:
         """The pairs of unequal lengths each report kernel scored on a path,
         beside all it scored (``ratio_matrix``: the pairs i < j of each
@@ -2366,11 +2230,12 @@ def main() -> int:
     sharded: dict = {}
     big: dict = {}
     held: dict = {}
+    # the numbers stay those the records cite: 23 is not used
     phases = [p1, p2, p3, p4, p5, p6, p7, p8, p9, p10, p11, p12, p13, p14, p15, p16, p17, p18,
-              p19, p20, p21, p22, p23, p24]
+              p19, p20, p21, p22, None, p24]
     try:
         for i, run in enumerate(phases, start=1):
-            if i not in skip:
+            if run is not None and i not in skip:
                 run()
     finally:
         for d in scratch:
@@ -2420,8 +2285,6 @@ def main() -> int:
             "ms_1m": stats["ms_1m"],
             "plain_ms_1m": stats["plain_ms_1m"],
             "bound_ms_1m": stats["bound_ms_1m"],
-            "measured_rate_bound": stats["measured_rate_bound"],
-            "measured_rate_bound_1m": stats["measured_rate_bound_1m"],
             "launches_in_phases": stats["launches_in_phases"],
             "launches_on_paths": on_paths("lcs_ratio"),
         },
@@ -2443,8 +2306,6 @@ def main() -> int:
             "expanded_lanes": pstats["expanded_lanes"],
             "expanded_kernel_ms": pstats["expanded_kernel_ms"],
             "expanded_kernel_bound_ms": pstats["expanded_kernel_bound_ms"],
-            "expanded_kernel_measured_rate_bound": pstats["expanded_kernel_measured_rate_bound"],
-            "measured_rate_bound": pstats["measured_rate_bound"],
             "launches_on_paths": on_paths("partial_ratio"),
             "array_250": array250["partial_ratio"],
             "planted_20x30_err_pe": err20["tables"]["partial_ratio"],
@@ -2473,8 +2334,6 @@ def main() -> int:
             "bound_ms_1m": mstats["bound_ms_1m"],
             "bound_ms_every_pair": mstats["bound_ms_every_pair"],
             "bound_ms_1m_every_pair": mstats["bound_ms_1m_every_pair"],
-            "measured_rate_bound": mstats["measured_rate_bound"],
-            "measured_rate_bound_1m": mstats["measured_rate_bound_1m"],
             "launches_on_paths": on_paths("ratio_matrix"),
             "array_250": array250["ratio_matrix"],
             "planted_20x30_err_pe": err20["tables"]["ratio_matrix"],
@@ -2484,7 +2343,6 @@ def main() -> int:
     ], "planted_20x30": {"report_s": main_path["report_s"], "wall_s": main_path["wall"],
                          "report_call_ms": main_path["call_ms"],
                          "stages_s": main_path["stages"]},
-        "int_rate": {**int_rate, "assumed_peak_per_s": PEAK_INT_OPS_S},
         "build_engines_planted_20x30": {
             e: [{"seconds": sec, "peak_bytes": pk} for sec, pk in engines["runs"][e]]
             for e in ("join", "inst")},
@@ -2494,7 +2352,7 @@ def main() -> int:
         "array_250": {k: array250[k] for k in ("wall", "spacers_found", "tables", "pairs")},
         "sample_1b": sample, "one_shard_count_budget": budget,
         "planted_20x30_err_pe": {k: v for k, v in err20.items() if k != "tables"},
-        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b, "bench_torch": bench,
+        "planted_20x30_err_pe_1m": err1m, "sample_1b_err_pe": err1b,
         "mixed_pe150": {k: v for k, v in pe150.items() if k != "tables"}}))
     print(json.dumps({
         "ok": True,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench
 from mcaat_tpu.graph.dbg import build_dbg_from_reads as jax_build
 from mcaat_tpu.io.fastq import encode_sequences
 from mcaat_tpu_torch import SENTINEL
@@ -157,3 +158,27 @@ def test_build_over_window_budget_goes_in_parts():
     parted = tdbg.build_dbg_from_reads(batch.codes, batch.lengths, chunk_windows=100, device=CPU)
     for f in ("kmers", "mult", "out", "in_", "valid"):
         assert torch.equal(getattr(parted, f), getattr(one, f)), f
+
+
+@pytest.mark.parametrize("n_reads,length", [(2_000, 100), (500, 60)])
+def test_build_step_counts_equal_bench_py(n_reads, length):
+    """``bench.py::build_step``'s chain on its uniform reads, one strand:
+    the (k+1)-mers counted, the last k-mers counted, the node table and
+    each edge's source id derived from the edge table, and the adjacency
+    in one chunk. The node and edge counts and the present out-slots are
+    the JAX step's."""
+    from mcaat_tpu_torch.kmer.count import (
+        count_unique,
+        derive_nodes_from_edges,
+        extract_kmers,
+        extract_last_kmer,
+    )
+
+    jcodes, jlengths = bench.synth_reads(n_reads, length)
+    want = tuple(int(x) for x in bench.build_step(jcodes, jlengths))
+    codes, lengths = torch.as_tensor(np.asarray(jcodes)), torch.as_tensor(np.asarray(jlengths))
+    u24, c24, n24 = count_unique(extract_kmers(codes, lengths, 24).reshape(-1))
+    u_l, c_l, _n_l = count_unique(extract_last_kmer(codes, lengths, 23))
+    u23, _c23, n23, u_id = derive_nodes_from_edges(u24, c24, u_l, c_l)
+    out, _in = tdbg.build_adjacency_chunked(u23, u24, u_id=u_id, chunk_edges=max(n24, 1))
+    assert (n23, n24, int((out >= 0).sum())) == want

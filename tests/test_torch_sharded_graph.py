@@ -200,3 +200,30 @@ def test_global_id_range_is_checked():
     with pytest.raises(ValueError, match="int32 global-id range"):
         tsg._check_gid_range(8, 1 << 28)
     tsg._check_gid_range(8, (1 << 28) - 1)
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+def test_pipeline_sharded_node_table_equals_jax(shards, monkeypatch):
+    """The release pipeline's sharded build (``build_sharded_graph_for_pipeline``
+    over ``MCAAT_TORCH_SHARDS`` CPU shards) of a small planted metagenome,
+    both strands: its live node table and multiplicities, compacted, are
+    the JAX single-device build's; 8 shards split the rows."""
+    from mcaat_tpu.graph.dbg import build_dbg_from_reads as jbuild
+    from mcaat_tpu.io.fastq import encode_sequences
+    from mcaat_tpu.kmer.count import SENTINEL
+    from mcaat_tpu_torch.parallel.sharded_pipeline import build_sharded_graph_for_pipeline
+    from mcaat_tpu_torch.settings import Settings
+    from tests.synthetic import make_metagenome
+
+    meta = make_metagenome(seed=123, n_arrays=2, n_spacers=6, background_len=20_000,
+                           background_coverage=8.0, coverage=35.0)
+    b = encode_sequences(meta["reads"])
+    monkeypatch.setenv("MCAAT_TORCH_SHARDS", str(shards))
+    sg = build_sharded_graph_for_pipeline(b.codes, b.lengths, Settings(), torch.device("cpu"))
+    assert sg.mesh.kp == shards
+    g = tsg.sharded_dbg_to_dbg(sg, "cpu")
+    jg = jbuild(b.codes, b.lengths, k=23)
+    n = int((np.asarray(jg.kmers) != int(SENTINEL)).sum())
+    np.testing.assert_array_equal(g.kmers.numpy(), np.asarray(jg.kmers)[:n])
+    np.testing.assert_array_equal(g.mult.numpy(), np.asarray(jg.mult)[:n])
+    assert sg.n_nodes == n and (int(sg.n_live.max()) < n) == (shards > 1)

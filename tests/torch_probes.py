@@ -1,8 +1,8 @@
 """Counters around one pipeline run of the torch port, and the rules
 that hold a report to its planted truth, for the chip runs
-(``chip_smoke.py``, ``bench_torch.py``, ``scripts/torch_e2e_big.py``)
-and their CPU tests. Nothing in the package is changed: each probe wraps
-a module attribute for the length of a ``with`` block and puts it back.
+(``chip_smoke.py``, ``scripts/torch_e2e_big.py``) and their CPU tests.
+Nothing in the package is changed: each probe wraps a module attribute
+for the length of a ``with`` block and puts it back.
 
 ``probe_pipeline()`` yields a dict that fills as the run goes:
 
@@ -31,8 +31,7 @@ a module attribute for the length of a ``with`` block and puts it back.
 - ``peaks``: on a card, the allocated peak above the block's start of
   the count parts (read at the first drain of the merge stack), the node
   table (read as the adjacency starts), the adjacency and what follows;
-  each reading starts a fresh peak;
-- ``peak_bytes``: on a card, the block's allocated peak.
+  each reading starts a fresh peak.
 
 The truth rules: :func:`spacer_recovery` (``bench.py``'s core rule),
 :func:`arrays_found` (the exact repeat on error-free reads, a shared
@@ -125,7 +124,7 @@ def probe_sharded_count(device=None):
     from mcaat_tpu_torch.parallel import sharded_graph
 
     cuda = device is not None and torch.device(device).type == "cuda"
-    got = {"rows": [], "peaks": {}, "peak_bytes": None}
+    got = {"rows": [], "peaks": {}}
     peaks = got["peaks"]
     base = 0
 
@@ -166,8 +165,6 @@ def probe_sharded_count(device=None):
         sharded_graph.count_unique, sharded_graph._merge_stack_drain = count_unique, drain
         sharded_graph._sharded_adjacency = adjacency
     mark("rest")
-    if cuda:
-        got["peak_bytes"] = base + max(peaks.values())
 
 
 def _rc(seq: str) -> str:
