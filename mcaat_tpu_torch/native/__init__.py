@@ -1,19 +1,21 @@
 """ctypes bindings for the native host runtime (native/mcaat_host.cpp)
 and for the port's own host code beside this file: the plain-FASTQ
-parser (``fastx.cpp``) and the report's host-route scores (``fuzz.cpp``).
+parser (``fastx.cpp``), the report's host-route scores (``fuzz.cpp``) and
+the spacer-ordering stage's SCC split (``split.cpp``).
 
 The tracked ``native/libmcaat_host.so`` at the repository root is loaded
 first and never rewritten. Where it does not load on this machine, a copy
 is compiled from ``native/mcaat_host.cpp`` with ``native/Makefile``'s
 flags into ``build/mcaat_tpu_torch/`` and loaded from there. Every entry
 point degrades to the pure-Python implementation when neither is
-available. ``fastx.cpp`` and ``fuzz.cpp`` are compiled with the same
-flags (less OpenMP and zlib, which they do not use) into
+available. ``fastx.cpp``, ``fuzz.cpp`` and ``split.cpp`` are compiled
+with the same flags (less OpenMP and zlib, which they do not use) into
 ``build/mcaat_tpu_torch/`` by :func:`_load`, each under a name keyed by
 its source, the flags and the host's CPU; when that fails
 :func:`parse_plain_fastq` returns None and callers keep the shared
-parser, and the ``fuzz_*`` functions return None and the report keeps
-its Python loops.
+parser, the ``fuzz_*`` functions return None and the report keeps its
+Python loops, and :func:`scc_split` returns None and the ordering stage
+keeps its Python split.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ _BUILD_PATH = os.path.join(_ROOT, "build", "mcaat_tpu_torch", "libmcaat_host.so"
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _FASTX_SRC = os.path.join(_HERE, "fastx.cpp")
 _FUZZ_SRC = os.path.join(_HERE, "fuzz.cpp")
+_SPLIT_SRC = os.path.join(_HERE, "split.cpp")
 # -ffp-contract=off: fuzz.cpp's scores must round as Python's do
 _CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread",
               "-ffp-contract=off"]
@@ -46,6 +49,8 @@ _fastx: Optional[ctypes.CDLL] = None
 _fastx_tried = False
 _fuzz: Optional[ctypes.CDLL] = None
 _fuzz_tried = False
+_split: Optional[ctypes.CDLL] = None
+_split_tried = False
 # --threads as set_threads last received it; None = unset (the CPU count)
 _threads: Optional[int] = None
 
@@ -171,6 +176,23 @@ def _load_fuzz() -> Optional[ctypes.CDLL]:
     return _fuzz
 
 
+def _load_split() -> Optional[ctypes.CDLL]:
+    """The ordering stage's SCC split library, built on first use."""
+    global _split, _split_tried
+    if _split_tried:
+        return _split
+    _split_tried = True
+    lib = _open(_SPLIT_SRC)
+    if lib is None:
+        return None
+    c = ctypes
+    i32, i64, u8 = (c.POINTER(t) for t in (c.c_int32, c.c_int64, c.c_uint8))
+    lib.mcaat_split.restype = c.c_int64
+    lib.mcaat_split.argtypes = [i32, u8, c.c_int64, i32, i32, i64, u8, i32, i64]
+    _split = lib
+    return _split
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _tried:
@@ -178,6 +200,7 @@ def _load() -> Optional[ctypes.CDLL]:
     _tried = True
     _load_fastx()
     _load_fuzz()
+    _load_split()
     lib = None
     if os.path.exists(_LIB_PATH):
         try:
@@ -289,6 +312,39 @@ def scc_components(indptr, indices, valid) -> "list[list[int]] | None":
         comps.append(order[pos : pos + sz].tolist())
         pos += sz
     return comps
+
+
+def scc_split(out, valid):
+    """The SCC split of ``split.cpp`` over the [N, 4] out table ``out``
+    and the validity mask ``valid``: ``(label, order, node_off, deg,
+    targets, edge_off)`` as that file defines them, label [N] and the rest
+    cut to their used lengths; None when split.cpp did not build, a node
+    id does not fit int32, or a slot names a node outside the table."""
+    lib = _load_split()
+    if lib is None:
+        return None
+    valid_u8 = np.ascontiguousarray(valid, dtype=np.uint8)
+    n = valid_u8.shape[0]
+    out = np.asarray(out).reshape(n, 4)
+    if n >= 2**31 or (out.dtype != np.int32 and out.size
+                      and (out.max() >= n or out.min() < -(2**31))):
+        return None
+    out = np.ascontiguousarray(out, dtype=np.int32)
+    label = np.empty(n, dtype=np.int32)
+    order = np.empty(max(n, 1), dtype=np.int32)
+    node_off = np.empty(n // 2 + 1, dtype=np.int64)
+    deg = np.empty(max(n, 1), dtype=np.uint8)
+    targets = np.empty(max(4 * n, 1), dtype=np.int32)
+    edge_off = np.empty(n // 2 + 1, dtype=np.int64)
+    count = lib.mcaat_split(_ptr(out, ctypes.c_int32), _ptr(valid_u8, ctypes.c_uint8), n,
+                            _ptr(label, ctypes.c_int32), _ptr(order, ctypes.c_int32),
+                            _ptr(node_off, ctypes.c_int64), _ptr(deg, ctypes.c_uint8),
+                            _ptr(targets, ctypes.c_int32), _ptr(edge_off, ctypes.c_int64))
+    if count < 0:
+        return None
+    m, e = int(node_off[count]), int(edge_off[count])
+    return (label, order[:m].copy(), node_off[:count + 1].copy(), deg[:m].copy(),
+            targets[:e].copy(), edge_off[:count + 1].copy())
 
 
 def native_available() -> bool:

@@ -288,7 +288,7 @@ def spacer_ordering_step(
             sg, relevant_reads, relevant_cycles = remaining[idx]
             if verbose:
                 print(f"    Subproblem {idx + 1}/{len(remaining)}:")
-                print(f"      🛈 Graph with {len(sg.nodes)} nodes and {sg.edge_count()} edges")
+                print(f"      🛈 Graph with {sg.node_count()} nodes and {sg.edge_count()} edges")
                 print(f"      🛈 Reads with {len(relevant_reads)}/{len(reads)} used")
                 print(f"      🛈 Cycles with {len(relevant_cycles)} used")
                 sys.stdout.write(log_text)

@@ -146,9 +146,9 @@ def _zeroed(kernel):
 def _native_load(t):
     if shutil.which(os.environ.get("CXX", "g++")) is None:
         pytest.skip("no C++ compiler")
-    for name in ("_lib", "_fastx", "_fuzz"):
+    for name in ("_lib", "_fastx", "_fuzz", "_split"):
         t.monkeypatch.setattr(native, name, None)
-    for name in ("_tried", "_fastx_tried", "_fuzz_tried"):
+    for name in ("_tried", "_fastx_tried", "_fuzz_tried", "_split_tried"):
         t.monkeypatch.setattr(native, name, False)
     native._load()
 
@@ -156,12 +156,14 @@ def _native_load(t):
         raise AssertionError(f"{src_path} built after native._load()")
 
     t.monkeypatch.setattr(native, "_open", again)
-    assert native._load_fastx() is not None and native._load_fuzz() is not None
-    # and the sample took both compiled routes
+    assert all(lib() is not None for lib in (native._load_fastx, native._load_fuzz,
+                                             native._load_split))
+    # and the sample took the three compiled routes
     (records,) = t.observed["records"]
     counted = {k: sum(r["counters"].get(k, 0) for r in records)
-               for k in ("parse_fast_files", "host_route_compiled_pairs")}
-    assert counted["parse_fast_files"] == 1 and counted["host_route_compiled_pairs"] > 0, counted
+               for k in ("parse_fast_files", "host_route_compiled_pairs", "split_compiled_nodes")}
+    assert (counted["parse_fast_files"] == 1 and counted["host_route_compiled_pairs"] > 0
+            and counted["split_compiled_nodes"] > 0), counted
 
 
 CASES = {
