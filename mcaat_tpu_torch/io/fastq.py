@@ -19,7 +19,9 @@ parser.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
+import os
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
@@ -34,10 +36,18 @@ for i, b in enumerate("ACGT"):
     _ENCODE_LUT[ord(b.lower())] = i
 
 
+def _is_gzip(path: str) -> bool:
+    """True when the file starts with gzip's magic ``1f 8b``, whatever its
+    name."""
+    try:
+        with open(path, "rb") as fh:
+            return fh.read(2) == b"\x1f\x8b"
+    except OSError:
+        return False
+
+
 def _open_maybe_gzip(path: str):
-    with open(path, "rb") as probe:
-        magic = probe.read(2)
-    if magic == b"\x1f\x8b":
+    if _is_gzip(path):
         return gzip.open(path, "rt")
     return open(path, "r")
 
@@ -243,6 +253,20 @@ def _parse_shared(path: str) -> ReadBatch:
     return encode_sequences(_read_sequences_py(path))
 
 
+@contextlib.contextmanager
+def _gzip_span(path: str):
+    """The span ``gzip_parse`` and its counters around the block when
+    ``path`` is gzipped (see :func:`read_encoded_batches`)."""
+    if not _is_gzip(path):
+        yield
+        return
+    from mcaat_tpu_torch.utils.profiling import count, span
+
+    with span("gzip_parse"):
+        count(gzip_files=1, gzip_bytes=os.path.getsize(path))
+        yield
+
+
 def read_encoded_batches(paths: list[str]) -> list[ReadBatch]:
     """Parse FASTA/FASTQ(.gz) files into ReadBatches, one a path, in turn.
 
@@ -252,15 +276,19 @@ def read_encoded_batches(paths: list[str]) -> list[ReadBatch]:
     the shared native parser (no Python string a read), else the Python
     one. Both give the same codes and lengths. Counts, in the innermost
     open span, ``parse_fast_files`` (the files the port's parser took)
-    and ``parse_threads`` (its threads), when it took any."""
+    and ``parse_threads`` (its threads), when it took any. The parse of
+    each file that starts with gzip's magic is the span ``gzip_parse``
+    under that span, with the counters ``gzip_files`` (1) and
+    ``gzip_bytes`` (the file's size on disk)."""
     from mcaat_tpu_torch.native import parse_threads
     from mcaat_tpu_torch.utils.profiling import count
 
     out, fast = [], 0
     for path in paths:
-        batch = _parse_plain(path)
-        fast += batch is not None
-        out.append(batch if batch is not None else _parse_shared(path))
+        with _gzip_span(path):
+            batch = _parse_plain(path)
+            fast += batch is not None
+            out.append(batch if batch is not None else _parse_shared(path))
     if fast:
         count(parse_fast_files=fast, parse_threads=parse_threads())
     return out
