@@ -11,15 +11,14 @@ Base encoding: A=0, C=1, G=2, T=3. Any non-ACGT character is encoded as T,
 mirroring the reference's lookup coding where "other" maps to the same code
 as T (``src/reads.cpp:44-53``: A=1,C=2,G=3,T/other=4).
 
-Plain FASTQ is parsed by the port's own multi-threaded parser
-(``mcaat_tpu_torch/native/fastx.cpp``); other inputs by the shared native
-C++ extension (``native/``) when it is built, otherwise by a pure-Python
-parser.
+FASTQ, plain or gzipped, is parsed by the port's own multi-threaded
+parser (``mcaat_tpu_torch/native/fastx.cpp``); other inputs by the shared
+native C++ extension (``native/``) when it is built, otherwise by a
+pure-Python parser.
 """
 
 from __future__ import annotations
 
-import contextlib
 import gzip
 import os
 from dataclasses import dataclass
@@ -253,45 +252,53 @@ def _parse_shared(path: str) -> ReadBatch:
     return encode_sequences(_read_sequences_py(path))
 
 
-@contextlib.contextmanager
-def _gzip_span(path: str):
-    """The span ``gzip_parse`` and its counters around the block when
-    ``path`` is gzipped (see :func:`read_encoded_batches`)."""
-    if not _is_gzip(path):
-        yield
-        return
+def _parse_gzipped(paths: list[str]) -> list[ReadBatch]:
+    """The gzipped files ``paths`` parsed together in the span
+    ``gzip_parse`` (see :func:`read_encoded_batches`)."""
+    from mcaat_tpu_torch.native import parse_gzip_fastq
     from mcaat_tpu_torch.utils.profiling import count, span
 
     with span("gzip_parse"):
-        count(gzip_files=1, gzip_bytes=os.path.getsize(path))
-        yield
+        count(gzip_files=len(paths), gzip_bytes=sum(os.path.getsize(p) for p in paths))
+        got = parse_gzip_fastq(paths) or [None] * len(paths)
+        count(gzip_fast_files=sum(g is not None for g in got))
+        return [_parse_shared(p) if g is None else ReadBatch(codes=g[0], lengths=g[1])
+                for p, g in zip(paths, got)]
 
 
 def read_encoded_batches(paths: list[str]) -> list[ReadBatch]:
-    """Parse FASTA/FASTQ(.gz) files into ReadBatches, one a path, in turn.
+    """Parse FASTA/FASTQ(.gz) files into ReadBatches, one a path, in path
+    order.
 
     Plain FASTQ goes through the port's parser, which codes the file on
-    every host thread straight into the padded matrix; gzip, FASTA and
-    empty files, or every file when that parser is not built, through
-    the shared native parser (no Python string a read), else the Python
-    one. Both give the same codes and lengths. Counts, in the innermost
-    open span, ``parse_fast_files`` (the files the port's parser took)
-    and ``parse_threads`` (its threads), when it took any. The parse of
-    each file that starts with gzip's magic is the span ``gzip_parse``
-    under that span, with the counters ``gzip_files`` (1) and
-    ``gzip_bytes`` (the file's size on disk)."""
+    every host thread straight into the padded matrix, one file after the
+    other. The files that start with gzip's magic ``1f 8b`` are parsed
+    first, together: the port's parser inflates them with zlib at once,
+    one thread a file, and codes each inflated FASTQ buffer on every
+    thread. FASTA and empty files, a gzipped file that does not inflate
+    exactly or holds no FASTQ, and every file when that parser is not
+    built, go through the shared native parser (no Python string a read),
+    else the Python one. Every route
+    gives the same codes and lengths. Counts, in the innermost open span,
+    ``parse_fast_files`` (the plain files the port's parser took) and
+    ``parse_threads`` (its threads), when it took any. The gzipped files'
+    parse is one span ``gzip_parse`` under that span, with the counters
+    ``gzip_files`` (their count), ``gzip_bytes`` (their sizes on disk,
+    summed) and ``gzip_fast_files`` (those the port's parser inflated)."""
     from mcaat_tpu_torch.native import parse_threads
     from mcaat_tpu_torch.utils.profiling import count
 
-    out, fast = [], 0
-    for path in paths:
-        with _gzip_span(path):
+    gz = [i for i, p in enumerate(paths) if _is_gzip(p)]
+    out = dict(zip(gz, _parse_gzipped([paths[i] for i in gz]))) if gz else {}
+    fast = 0
+    for i, path in enumerate(paths):
+        if i not in out:
             batch = _parse_plain(path)
             fast += batch is not None
-            out.append(batch if batch is not None else _parse_shared(path))
+            out[i] = batch if batch is not None else _parse_shared(path)
     if fast:
         count(parse_fast_files=fast, parse_threads=parse_threads())
-    return out
+    return [out[i] for i in range(len(paths))]
 
 
 def read_encoded_batch(path: str) -> ReadBatch:

@@ -1,7 +1,7 @@
 """ctypes bindings for the native host runtime (native/mcaat_host.cpp)
-and for the port's own host code beside this file: the plain-FASTQ
-parser (``fastx.cpp``), the report's host-route scores (``fuzz.cpp``) and
-the spacer-ordering stage's SCC split (``split.cpp``).
+and for the port's own host code beside this file: the FASTQ parser
+(``fastx.cpp``, plain and gzipped), the report's host-route scores
+(``fuzz.cpp``) and the spacer-ordering stage's SCC split (``split.cpp``).
 
 The tracked ``native/libmcaat_host.so`` at the repository root is loaded
 first and never rewritten. Where it does not load on this machine, a copy
@@ -9,13 +9,14 @@ is compiled from ``native/mcaat_host.cpp`` with ``native/Makefile``'s
 flags into ``build/mcaat_tpu_torch/`` and loaded from there. Every entry
 point degrades to the pure-Python implementation when neither is
 available. ``fastx.cpp``, ``fuzz.cpp`` and ``split.cpp`` are compiled
-with the same flags (less OpenMP and zlib, which they do not use) into
-``build/mcaat_tpu_torch/`` by :func:`_load`, each under a name keyed by
-its source, the flags and the host's CPU; when that fails
-:func:`parse_plain_fastq` returns None and callers keep the shared
-parser, the ``fuzz_*`` functions return None and the report keeps its
-Python loops, and :func:`scc_split` returns None and the ordering stage
-keeps its Python split.
+with the same flags (less OpenMP) into ``build/mcaat_tpu_torch/`` by
+:func:`_load`, each under a name keyed by its source, the flags and the
+host's CPU; ``fastx.cpp`` links zlib (``-lz``, as ``native/Makefile``
+links the shared library) to inflate gzipped FASTQ. When a build fails
+:func:`parse_plain_fastq` and :func:`parse_gzip_fastq` return None and
+callers keep the shared parser, the ``fuzz_*`` functions return None and
+the report keeps its Python loops, and :func:`scc_split` returns None and
+the ordering stage keeps its Python split.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ _SPLIT_SRC = os.path.join(_HERE, "split.cpp")
 # -ffp-contract=off: fuzz.cpp's scores must round as Python's do
 _CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread",
               "-ffp-contract=off"]
+# fastx.cpp inflates gzipped FASTQ with zlib
+_FASTX_LINKS = ("-lz",)
 # the widest string fuzz.cpp scores: one 64-bit word of match masks
 FUZZ_MAX_LEN = 64
 
@@ -87,25 +90,26 @@ def _cpu_key() -> bytes:
     return b"\n".join(ln for ln in lines if ln.startswith((b"model name", b"flags")))
 
 
-def _build(src_path: str) -> Optional[str]:
-    """Compile the port's source ``src_path`` into build/mcaat_tpu_torch/
-    unless a build of this source for this CPU is there; its path, or
-    None when that fails. The compiler writes a private file that is
-    then renamed into place, so processes that build at once do not see
-    a partial one."""
+def _build(src_path: str, links: tuple = ()) -> Optional[str]:
+    """Compile the port's source ``src_path`` with the extra flags ``links``
+    into build/mcaat_tpu_torch/ unless a build of this source with these
+    flags for this CPU is there; its path, or None when that fails. The
+    compiler writes a private file that is then renamed into place, so
+    processes that build at once do not see a partial one."""
     stem = os.path.splitext(os.path.basename(src_path))[0]
     try:
         with open(src_path, "rb") as fh:
             src = fh.read()
     except OSError:
         return None
-    key = hashlib.sha1(src + " ".join(_CXX_FLAGS).encode() + _cpu_key()).hexdigest()[:16]
+    flags = " ".join([*_CXX_FLAGS, *links]).encode()
+    key = hashlib.sha1(src + flags + _cpu_key()).hexdigest()[:16]
     path = os.path.join(_ROOT, "build", "mcaat_tpu_torch", f"libmcaat_{stem}-{key}.so")
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, src_path, "-o", tmp]
+    cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, src_path, "-o", tmp, *links]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, path)
@@ -117,10 +121,10 @@ def _build(src_path: str) -> Optional[str]:
     return path
 
 
-def _open(src_path: str) -> Optional[ctypes.CDLL]:
-    """The library of the port's source ``src_path`` (:func:`_build`),
-    loaded; None when it did not build or load."""
-    path = _build(src_path)
+def _open(src_path: str, links: tuple = ()) -> Optional[ctypes.CDLL]:
+    """The library of the port's source ``src_path`` built with ``links``
+    (:func:`_build`), loaded; None when it did not build or load."""
+    path = _build(src_path, links)
     if path is None:
         return None
     try:
@@ -135,7 +139,7 @@ def _load_fastx() -> Optional[ctypes.CDLL]:
     if _fastx_tried:
         return _fastx
     _fastx_tried = True
-    lib = _open(_FASTX_SRC)
+    lib = _open(_FASTX_SRC, _FASTX_LINKS)
     if lib is None:
         return None
     c = ctypes
@@ -150,6 +154,11 @@ def _load_fastx() -> Optional[ctypes.CDLL]:
     ]
     lib.mcaat_fastq_close.restype = None
     lib.mcaat_fastq_close.argtypes = [c.c_void_p]
+    lib.mcaat_gzip_index.restype = None
+    lib.mcaat_gzip_index.argtypes = [
+        c.POINTER(c.c_char_p), c.c_int, c.c_int, c.POINTER(c.c_void_p),
+        c.POINTER(c.c_int64), c.POINTER(c.c_int32),
+    ]
     _fastx = lib
     return _fastx
 
@@ -462,16 +471,52 @@ def parse_plain_fastq(path: str, threads: Optional[int] = None, cuts=None):
     )
     if not h:
         return None
+    return _fill(lib, h, int(n_reads.value), int(max_len.value), n_threads)
+
+
+def _fill(lib, handle, n_reads: int, max_len: int, n_threads: int):
+    """The codes and lengths of fastx.cpp's index ``handle``, which this
+    closes."""
+    c = ctypes
     try:
-        codes = np.empty((int(n_reads.value), int(max_len.value)), dtype=np.uint8)
-        lengths = np.empty(int(n_reads.value), dtype=np.int32)
+        codes = np.empty((n_reads, max_len), dtype=np.uint8)
+        lengths = np.empty(n_reads, dtype=np.int32)
         lib.mcaat_fastq_fill(
-            h, codes.ctypes.data_as(c.POINTER(c.c_uint8)),
+            handle, codes.ctypes.data_as(c.POINTER(c.c_uint8)),
             lengths.ctypes.data_as(c.POINTER(c.c_int32)), n_threads,
         )
     finally:
-        lib.mcaat_fastq_close(h)
+        lib.mcaat_fastq_close(handle)
     return codes, lengths
+
+
+def parse_gzip_fastq(paths: list, threads: Optional[int] = None):
+    """Parse the gzipped FASTQ files ``paths`` with the port's parser
+    (fastx.cpp): every file inflated whole by zlib at once, one thread a
+    file up to ``threads`` (default :func:`parse_threads`), then coded on
+    ``threads`` threads one file after the other. A file's entry is
+    ``(codes, lengths)``, equal byte for byte to
+    :func:`parse_fastx_batch`'s; None for a file that did not inflate
+    exactly (a corrupt or truncated stream, bytes after its last member)
+    or whose first inflated byte is not ``@``: the shared parser decides
+    what such a file gives. None in place of the list when fastx.cpp did
+    not build."""
+    lib = _load_fastx()
+    if lib is None:
+        return None
+    c = ctypes
+    n, n_threads = len(paths), int(threads or parse_threads())
+    if n == 0:
+        return []
+    names = (c.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    handles = (c.c_void_p * n)()
+    n_reads = np.zeros(n, dtype=np.int64)
+    max_len = np.zeros(n, dtype=np.int32)
+    lib.mcaat_gzip_index(names, n, n_threads, handles,
+                         _ptr(n_reads, c.c_int64), _ptr(max_len, c.c_int32))
+    return [None if not handles[f] else
+            _fill(lib, handles[f], int(n_reads[f]), int(max_len[f]), n_threads)
+            for f in range(n)]
 
 
 def parse_fastx(path: str) -> list[str]:

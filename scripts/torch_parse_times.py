@@ -1,18 +1,22 @@
 """Time the FASTQ parse of a pair of mates on this host, route by route.
 
     python3 scripts/torch_parse_times.py [--input sample-pe150] [--dir D]
-        [--threads 1,2,4,8] [--turns 3] [--json F]
+        [--threads 1,2,4,8] [--turns 3] [--gz] [--json F]
 
 Writes the named input of ``tests/torch_fragments.py`` under ``D`` (kept
-and reused when its two files are there), then times, in turns:
+and reused when its two files are there; ``.fq.gz`` at level 1 with
+``--gz``), then times, in turns:
 
 - ``shared``: ``native.parse_fastx_batch`` on each mate (the shared
   library's one-thread zlib parse, its matrix copied into numpy), the
-  route plain FASTQ took before the port had its own parser;
-- ``serial-T``: ``native.parse_plain_fastq`` on each mate in turn with
-  T threads each;
-- ``concurrent-T``: both mates at once from two Python threads (ctypes
-  lets the GIL go), T/2 threads each.
+  route plain FASTQ took before the port had its own parser, and gzipped
+  FASTQ before the port inflated it;
+- plain files: ``serial-T``, ``native.parse_plain_fastq`` on each mate
+  in turn with T threads each; ``concurrent-T``, both mates at once from
+  two Python threads (ctypes lets the GIL go), T/2 threads each;
+- gzipped files: ``gzip-T``, ``native.parse_gzip_fastq`` on both mates
+  with T threads (the mates inflate at once, up to T); ``gzip-serial-T``,
+  the mates one call each.
 
 Every route's codes and lengths are checked equal to ``shared``'s. Then
 the host's copy rate: numpy copies of a buffer the size of one mate's
@@ -41,13 +45,13 @@ sys.path[:0] = [os.path.join(ROOT, "tests"), ROOT]
 from mcaat_tpu_torch import native  # noqa: E402
 
 
-def _input(name: str, folder: str) -> list[str]:
-    files = [os.path.join(folder, f"reads_{i}.fq") for i in (1, 2)]
+def _input(name: str, folder: str, gz: bool) -> list[str]:
+    files = [os.path.join(folder, f"reads_{i}.fq" + (".gz" if gz else "")) for i in (1, 2)]
     if not all(os.path.exists(f) for f in files):
         import torch_fragments
 
         t0 = time.perf_counter()
-        got = torch_fragments.make_named(name, folder)
+        got = torch_fragments.make_named(name, folder, gz=gz)
         files = got["files"]
         print(f"wrote {name}: {got['n_pairs']} pairs in {time.perf_counter() - t0:.2f}s",
               flush=True)
@@ -60,6 +64,16 @@ def _shared(files, _threads):
 
 def _serial(files, threads):
     return [native.parse_plain_fastq(f, threads=threads) for f in files]
+
+
+def _gzip(serial: bool):
+    def run(files, threads):
+        calls = [[f] for f in files] if serial else [files]
+        got = [g for c in calls for g in native.parse_gzip_fastq(c, threads)]
+        assert all(g is not None for g in got)
+        return got
+
+    return run
 
 
 def _concurrent(files, threads):
@@ -103,15 +117,20 @@ def main() -> int:
     ap.add_argument("--dir", default=os.path.join(ROOT, "build", "parse_times"))
     ap.add_argument("--threads", default="1,2,4,8")
     ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--gz", action="store_true")
     ap.add_argument("--json")
     args = ap.parse_args()
-    files = _input(args.input, args.dir)
+    files = _input(args.input, args.dir, args.gz)
     file_bytes = [os.path.getsize(f) for f in files]
     cpus = native.parse_threads()
     threads = [int(t) for t in args.threads.split(",")]
     routes = [("shared", _shared, 1)]
-    routes += [(f"serial-{t}", _serial, t) for t in threads]
-    routes += [(f"concurrent-{t}", _concurrent, t) for t in threads if t >= 2]
+    if args.gz:
+        routes += [(f"gzip-{t}", _gzip(False), t) for t in threads]
+        routes += [(f"gzip-serial-{t}", _gzip(True), t) for t in threads[-1:]]
+    else:
+        routes += [(f"serial-{t}", _serial, t) for t in threads]
+        routes += [(f"concurrent-{t}", _concurrent, t) for t in threads if t >= 2]
     want = _shared(files, 1)
     out_bytes = sum(c.nbytes + ln.nbytes for c, ln in want)
     times: dict[str, list[float]] = {name: [] for name, _, _ in routes}
@@ -131,6 +150,7 @@ def main() -> int:
     moved = sum(file_bytes) + out_bytes
     result = {
         "input": args.input,
+        "gz": args.gz,
         "file_bytes": file_bytes,
         "reads": [int(ln.shape[0]) for _, ln in want],
         "out_bytes": out_bytes,

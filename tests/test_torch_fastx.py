@@ -1,17 +1,23 @@
-"""The port's plain-FASTQ parser (``mcaat_tpu_torch/native/fastx.cpp``)
-against the shared native parser (``native.parse_fastx_batch``) and the
-Python one, codes and lengths byte for byte: ragged, N, IUPAC, lowercase
-and CRLF lines; empty sequence lines, an unterminated last line and a
+"""The port's FASTQ parser (``mcaat_tpu_torch/native/fastx.cpp``) against
+the shared native parser (``native.parse_fastx_batch``) and the Python
+one, codes and lengths byte for byte: ragged, N, IUPAC, lowercase and
+CRLF lines; empty sequence lines, an unterminated last line and a
 truncated last record; a quality line that starts with ``@``; one read;
 more threads than records or bytes; and two or three threads' byte
-ranges cut at every offset of a small file. gzip, FASTA and empty files
-take the shared route; the counters read the files the new route took.
-Then ``run_cli`` on the pe150 fixture through both routes, with the
-ordering stage's forked pool after the new parse."""
+ranges cut at every offset of a small file. Every case also gzipped at
+levels 1 and 6 and inflated by the parser's zlib; then gzip members (an
+empty one, one past the first guess of the size, a header CRC) and what
+goes back to the shared route (an empty stream, FASTA, a truncated,
+corrupt or garbage-tailed stream). FASTA and empty files take the shared route; the
+counters read the files the new route took. Then ``run_cli`` on the pe150
+fixture through both routes, with the ordering stage's forked pool after
+the new parse."""
 
 import gzip
 import os
 import shutil
+import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -49,6 +55,8 @@ CASES = {
     "crlf-unterminated-sequence": (_rec("ACGT", nl="\r\n") + "@r\r\nGGCA\r", False),
 }
 THREADS = [1, 2, 3, 7, 64]
+# how a case's file is written: plain, or gzipped at a level
+FORMS = ["plain", "gz1", "gz6"]
 
 
 def _write(tmp_path, name: str, text: str) -> str:
@@ -56,6 +64,22 @@ def _write(tmp_path, name: str, text: str) -> str:
     with open(path, "wb") as fh:
         fh.write(text.encode())
     return path
+
+
+def _write_gz(tmp_path, name: str, members: list, level: int = 1) -> str:
+    """``members`` (bytes each) as one gzip member each, concatenated."""
+    path = str(tmp_path / f"{name}.fq.gz")
+    with open(path, "wb") as fh:
+        for data in members:
+            fh.write(gzip.compress(data, compresslevel=level, mtime=0))
+    return path
+
+
+def _parse_gz(path: str, threads=None):
+    """``native.parse_gzip_fastq`` on one file: its (codes, lengths) or
+    None."""
+    (got,) = tnative.parse_gzip_fastq([path], threads)
+    return got
 
 
 def _shared(path: str):
@@ -77,12 +101,17 @@ def _equal(got, want):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("threads", THREADS)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_codes_and_lengths_equal_the_shared_parsers(case, threads, tmp_path):
+def test_codes_and_lengths_equal_the_shared_parsers(case, threads, form, tmp_path):
     text, py_alike = CASES[case]
-    path = _write(tmp_path, case, text)
-    got = tnative.parse_plain_fastq(path, threads=threads)
+    if form == "plain":
+        path = _write(tmp_path, case, text)
+        got = tnative.parse_plain_fastq(path, threads=threads)
+    else:
+        path = _write_gz(tmp_path, case, [text.encode()], level=int(form[2:]))
+        got = _parse_gz(path, threads)
     assert got is not None
     shared = _shared(path)
     if shared is not None:
@@ -152,11 +181,15 @@ def _other_inputs(tmp_path) -> dict:
 
 @pytest.mark.parametrize("kind", ["gz", "fasta", "empty"])
 def test_other_inputs_take_the_shared_route(kind, tmp_path, monkeypatch):
+    """FASTA and empty files take the shared route; a gzipped FASTQ file
+    now takes the port's parser, through its gzip entry."""
     paths = _other_inputs(tmp_path)
-    took = []
-    real = tnative.parse_plain_fastq
+    took, took_gz = [], []
+    real, real_gz = tnative.parse_plain_fastq, tnative.parse_gzip_fastq
     monkeypatch.setattr(tnative, "parse_plain_fastq",
                         lambda p, **kw: took.append(p) or real(p, **kw))
+    monkeypatch.setattr(tnative, "parse_gzip_fastq",
+                        lambda ps, *a, **kw: took_gz.append(list(ps)) or real_gz(ps, *a, **kw))
     prof = tprof.Profiler()
     with prof.stage("s"):
         b = tfastq.read_encoded_batch(paths[kind])
@@ -165,7 +198,76 @@ def test_other_inputs_take_the_shared_route(kind, tmp_path, monkeypatch):
     want = _shared(paths[kind]) or _python(paths[kind])
     _equal((b.codes, b.lengths), want)
     if kind == "gz":
+        assert took_gz == [[paths["gz"]]]
+        (gz,) = [r for r in prof.span_records() if r["name"] == "s/gzip_parse"]
+        assert gz["counters"]["gzip_fast_files"] == 1
         _equal((b.codes, b.lengths), tnative.parse_plain_fastq(paths["plain"]))
+    else:
+        assert took_gz == []
+
+
+def _crc_header_member(data: bytes, good: bool = True) -> bytes:
+    """A gzip member of ``data`` whose header carries FHCRC, the low 16
+    bits of the header's CRC-32 (wrong unless ``good``)."""
+    head = b"\x1f\x8b\x08\x02" + b"\x00" * 4 + b"\x00\xff"
+    crc16 = (zlib.crc32(head) & 0xFFFF) ^ (0 if good else 1)
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    body = co.compress(data) + co.flush()
+    return head + struct.pack("<H", crc16) + body + struct.pack("<II", zlib.crc32(data),
+                                                                len(data) & 0xFFFFFFFF)
+
+
+def _flip(data: bytes, at: int) -> bytes:
+    return data[:at] + bytes([data[at] ^ 0x55]) + data[at + 1:]
+
+
+RAGGED = CASES["ragged"][0].encode()
+_BASES = np.random.default_rng(22).choice(list("ACGT"), size=(400, 240))
+BIG = "".join(_rec("".join(row), f"r{i}") for i, row in enumerate(_BASES)).encode()  # 200 KB
+# name -> (the file's bytes, whether the port's parser takes it)
+GZ_CASES = {
+    "two-members": (gzip.compress(RAGGED, mtime=0)
+                    + gzip.compress(CASES["n-iupac-lower"][0].encode(), mtime=0), True),
+    "empty-member-first": (gzip.compress(b"", mtime=0) + gzip.compress(RAGGED, mtime=0), True),
+    "empty-member-last": (gzip.compress(RAGGED, mtime=0) + gzip.compress(b"", mtime=0), True),
+    # the last ISIZE (0) and the compressed size are far below the output
+    "past-the-first-guess": (gzip.compress(BIG, mtime=0) * 3 + gzip.compress(b"", mtime=0), True),
+    "header-crc": (_crc_header_member(RAGGED), True),
+    "header-crc-wrong": (_crc_header_member(RAGGED, good=False), False),
+    "empty-stream": (gzip.compress(b"", mtime=0), False),
+    "fasta": (gzip.compress(b">a\nACGT\nGG\n>b\nTTT\n", mtime=0), False),
+    "truncated": (gzip.compress(BIG, mtime=0)[:-9], False),
+    "truncated-in-the-second-member": (gzip.compress(RAGGED, mtime=0)
+                                       + gzip.compress(BIG, mtime=0)[:20000], False),
+    "corrupt": (_flip(gzip.compress(BIG, mtime=0), 300), False),
+    "garbage-after-the-member": (gzip.compress(RAGGED, mtime=0) + b"\x00" * 7, False),
+    "magic-after-the-member": (gzip.compress(RAGGED, mtime=0) + b"\x1f\x8b", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GZ_CASES))
+def test_gzip_members_and_what_goes_back_to_the_shared_route(case, tmp_path):
+    """The port's parser takes the files it can inflate exactly and
+    leaves every other one to the shared route, which decides what such a
+    file gives; ``read_encoded_batch`` gives the shared parser's arrays
+    either way. zlib checks a header CRC."""
+    data, taken = GZ_CASES[case]
+    path = str(tmp_path / f"{case}.fq.gz")
+    with open(path, "wb") as fh:
+        fh.write(data)
+    got = _parse_gz(path)
+    want = _shared(path) or _python(path)
+    if taken:
+        assert got is not None
+        _equal(got, want)
+        if tnative.native_available():
+            with gzip.open(path, "rb") as fh:
+                plain = _write(tmp_path, "plain", fh.read().decode())
+            _equal(got, tnative.parse_plain_fastq(plain))
+    else:
+        assert got is None
+    b = tfastq.read_encoded_batch(path)
+    _equal((b.codes, b.lengths), want)
 
 
 @pytest.mark.parametrize("threads", [0, 3])
